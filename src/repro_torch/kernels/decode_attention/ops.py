@@ -1,0 +1,295 @@
+"""Decode attention: the Hopper kernel's wrappers, its plain version, and
+the tile-slack model.
+
+``decode_attention_ragged`` (dense per-slot cache) and
+``decode_attention_paged`` (global paged pool + block tables) replace the
+reference's Pallas entries of the same names.  Both take the reference
+layout — q ``(b, n, h, dh)``, the cache ``(b, s, kv, dh)`` or the pool
+``(n_phys, bs, kv, dh)``, per-row committed lengths ``cache_lens`` — and
+return ``(b, n, h, dh)``.  On a CUDA tensor they launch
+``csrc/decode_attention.cu`` (see its header for the design and what
+bounds it) or raise; only a tensor on the CPU takes the plain version.
+
+The q tile is ``select_q_block(n, dh)`` of ``core.granularity`` — the
+M_attn the NFP predictor reads — and the kv tile is ``K_BLOCK`` for the
+dense cache and one page for the pool.  The kernel pads the last q tile
+logically: rows past ``n`` are skipped, so no padded copy of q exists.
+
+``slack_report`` models one forward's physical work in numpy (useful vs
+padded query rows, executed vs grid kv tiles under the kernel's per-row
+skip rule); the kernel executes exactly its ``kv_tiles_executed``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.granularity import cdiv, round_up, select_q_block
+from repro_torch.kernels.build import load_library
+
+K_BLOCK = 128
+NEG_INF = -1e30
+
+Tensor = torch.Tensor
+Lens = Union[int, Tensor]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "decode_attention_dense": [_P] * 5 + [_I] * 9 + [_F, _P, _P],
+    "decode_attention_paged": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
+}
+
+
+def _kernels() -> ctypes.CDLL:
+    lib = load_library("decode_attention")
+    for fn, argtypes in _SIGNATURES.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (the reference's ref.py, plus the paged gather)
+# ---------------------------------------------------------------------------
+
+def row_lens(cache_lens: Lens, b: int, device) -> Tensor:
+    """(b,) int32 per-row lengths from a scalar or a (b,) tensor."""
+    if isinstance(cache_lens, Tensor):
+        return cache_lens.to(device=device, dtype=torch.int32).reshape(-1
+                                                                      ).expand(b)
+    return torch.full((b,), int(cache_lens), dtype=torch.int32, device=device)
+
+
+def gqa_core(q: Tensor, k: Tensor, v: Tensor, mask: Tensor, scale: float
+             ) -> Tensor:
+    """q: (b,sq,h,dh)  k/v: (b,sk,kv,dh)  mask: (b,sq,sk) bool -> (b,sq,h,dh).
+    Grouped without materializing repeated KV heads; scores and softmax in
+    f32, probabilities cast back to the input dtype."""
+    b, sq, h, dh = q.shape
+    kvh = k.shape[2]
+    qg = q.reshape(b, sq, kvh, h // kvh, dh)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() * scale
+    scores = torch.where(mask[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    ctx = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
+    return ctx.reshape(b, sq, h, dh)
+
+
+def paged_gather(pool: Tensor, block_tables: Tensor) -> Tensor:
+    """Each row's virtual contiguous cache from the pool:
+    (n_phys, bs, ...) + (b, max_blocks) -> (b, max_blocks*bs, ...)."""
+    n_phys, bs = pool.shape[0], pool.shape[1]
+    b, max_blocks = block_tables.shape
+    flat = pool.reshape((n_phys * bs,) + tuple(pool.shape[2:]))
+    idx = (block_tables.long()[:, :, None] * bs
+           + torch.arange(bs, device=pool.device)[None, None, :])
+    return flat[idx.reshape(b, max_blocks * bs)]
+
+
+def decode_attention_ref(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                         cache_lens: Lens, *, window: Optional[int] = None
+                         ) -> Tensor:
+    """q: (b, n, h, dh); k/v_cache: (b, s, kv, dh); row b's n queries sit
+    at cache_lens[b] .. cache_lens[b]+n-1.  Returns (b, n, h, dh)."""
+    b, n, h, dh = q.shape
+    s = k_cache.shape[1]
+    lens = row_lens(cache_lens, b, q.device)
+    q_pos = lens[:, None] + torch.arange(n, device=q.device, dtype=torch.int32)
+    kv_pos = torch.arange(s, device=q.device, dtype=torch.int32)
+    mask = kv_pos[None, None, :] <= q_pos[:, :, None]
+    if window is not None:
+        mask &= kv_pos[None, None, :] > (q_pos[:, :, None] - window)
+    return gqa_core(q, k_cache, v_cache, mask, 1.0 / (dh ** 0.5))
+
+
+def decode_attention_paged_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                               cache_lens: Lens, block_tables: Tensor, *,
+                               window: Optional[int] = None) -> Tensor:
+    """The paged pool gathered into per-row virtual caches, then the
+    dense plain version."""
+    return decode_attention_ref(q, paged_gather(k_pool, block_tables),
+                                paged_gather(v_pool, block_tables),
+                                cache_lens, window=window)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q: Tensor, k: Tensor, v: Tensor, window: Optional[int],
+           k_block: int) -> None:
+    b, n, h, dh = q.shape
+    kv = k.shape[2]
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"the decode-attention kernel takes bf16; "
+                            f"{name} is {t.dtype}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    if k.shape != v.shape or k.shape[3] != dh:
+        raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not "
+                         f"match q head_dim {dh}")
+    if dh % 16 or dh > 128:
+        raise ValueError(f"head_dim {dh}: the kernel takes dh % 16 == 0, "
+                         "dh <= 128")
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} kv heads")
+    if not 1 <= k_block <= 128:
+        raise ValueError(f"kv tile {k_block} outside [1, 128]")
+    if window is not None and window < 1:
+        raise ValueError(f"window {window} must be >= 1")
+    if n < 1:
+        raise ValueError("no query positions")
+
+
+def _device_lens(cache_lens: Lens, b: int, q: Tensor) -> Tensor:
+    lens = row_lens(cache_lens, b, q.device).contiguous()
+    if lens.device != q.device:
+        raise ValueError(f"cache_lens on {lens.device}, q on {q.device}")
+    return lens
+
+
+def _ptr(t: Optional[Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(q: Tensor) -> int:
+    return torch.cuda.current_stream(q.device).cuda_stream
+
+
+def decode_attention_ragged(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                            cache_lens: Lens, *,
+                            window: Optional[int] = None,
+                            tiles: Optional[Tensor] = None) -> Tensor:
+    """q: (b, n, h, dh); k/v_cache: (b, s, kv, dh); cache_lens: scalar or
+    (b,).  ``tiles`` (a one-element int32 CUDA tensor) accumulates the kv
+    tiles the kernel executes, summed over kv heads."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, cache_lens,
+                                    window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode-attention path for {q.device}")
+    _check(q, k_cache, v_cache, window, K_BLOCK)
+    b, n, h, dh = q.shape
+    s, kv = k_cache.shape[1], k_cache.shape[2]
+    lens = _device_lens(cache_lens, b, q)
+    o = torch.empty_like(q)
+    err = _kernels().decode_attention_dense(
+        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
+        lens.data_ptr(), b, n, h, kv, dh, s, select_q_block(n, dh), K_BLOCK,
+        -1 if window is None else window, 1.0 / (dh ** 0.5), _ptr(tiles),
+        _stream(q))
+    if err:
+        raise RuntimeError(f"decode_attention_dense launch failed: CUDA "
+                           f"error {err}")
+    decode_attention_ragged.launches += 1
+    return o
+
+
+decode_attention_ragged.launches = 0
+
+
+def decode_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                           cache_lens: Lens, block_tables: Tensor, *,
+                           window: Optional[int] = None,
+                           tiles: Optional[Tensor] = None) -> Tensor:
+    """q: (b, n, h, dh); k/v_pool: (n_phys, bs, kv, dh), whose page size
+    ``bs`` is this launch's kv tile; block_tables: (b, max_blocks) int32
+    logical tile -> physical page (unassigned entries name the trash
+    page).  Row b's queries sit at logical positions cache_lens[b] ..
+    cache_lens[b]+n-1, their K/V already in the pool."""
+    if q.device.type == "cpu":
+        return decode_attention_paged_ref(q, k_pool, v_pool, cache_lens,
+                                          block_tables, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no decode-attention path for {q.device}")
+    bs = k_pool.shape[1]
+    _check(q, k_pool, v_pool, window, bs)
+    b, n, h, dh = q.shape
+    kv = k_pool.shape[2]
+    if (block_tables.dtype != torch.int32 or block_tables.device != q.device
+            or not block_tables.is_contiguous()
+            or block_tables.shape[0] != b):
+        raise ValueError("block_tables must be a contiguous (b, max_blocks) "
+                         "int32 tensor on q's device")
+    lens = _device_lens(cache_lens, b, q)
+    o = torch.empty_like(q)
+    err = _kernels().decode_attention_paged(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), o.data_ptr(),
+        lens.data_ptr(), block_tables.data_ptr(), b, n, h, kv, dh, bs,
+        block_tables.shape[1], select_q_block(n, dh),
+        -1 if window is None else window,
+        1.0 / (dh ** 0.5), _ptr(tiles), _stream(q))
+    if err:
+        raise RuntimeError(f"decode_attention_paged launch failed: CUDA "
+                           f"error {err}")
+    decode_attention_paged.launches += 1
+    return o
+
+
+decode_attention_paged.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# granularity slack (numpy; copied from the reference ops.slack_report)
+# ---------------------------------------------------------------------------
+
+def slack_report(n: int, cache_lens, s_max: int, *,
+                 head_dim: int = 128,
+                 k_block: int = K_BLOCK,
+                 window: Optional[int] = None,
+                 active=None) -> Dict[str, float]:
+    """Model one ragged decode forward's physical work (per kv head).
+
+    Kv tile ij of batch row b and q tile iq executes iff
+        ij*k_block < len_b + min(n, (iq+1)*q_block)              (upper)
+        and, with a window, ij*k_block + k_block - 1 >=
+            len_b + iq*q_block - window + 1                      (lower)
+    ``active`` (b,) bool marks rows carrying real requests; the others
+    still execute but count as slack.  For the paged launch pass
+    ``k_block=block_size`` and the table-covered ``s_max``.
+    """
+    lens = np.asarray(cache_lens, np.int64).ravel()
+    b = lens.size
+    act = (np.ones(b, bool) if active is None
+           else np.asarray(active, bool).ravel())
+    qb = select_q_block(n, head_dim)
+    n_pad = round_up(n, qb)
+    n_q_tiles = n_pad // qb
+    s_pad = round_up(s_max, k_block)
+    n_kv_tiles = s_pad // k_block
+
+    executed = 0
+    useful = 0
+    for bi in range(b):
+        for iq in range(n_q_tiles):
+            hi = lens[bi] + min(n, (iq + 1) * qb)        # kv end (exclusive)
+            tiles = min(n_kv_tiles, cdiv(int(hi), k_block))
+            lo_tile = 0
+            if window is not None:
+                lo_visible = lens[bi] + iq * qb - window + 1
+                lo_tile = max(0, int(lo_visible) // k_block)
+            t = max(0, tiles - lo_tile)
+            executed += t
+            if act[bi]:
+                useful += t
+
+    rows_logical = int(act.sum()) * n
+    rows_physical = b * n_pad
+    grid = b * n_q_tiles * n_kv_tiles
+    return {
+        "n": n, "q_block": qb, "k_block": k_block,
+        "rows_logical": rows_logical,
+        "rows_physical": rows_physical,
+        "row_utilization": rows_logical / max(rows_physical, 1),
+        "kv_tiles_useful": useful,
+        "kv_tiles_executed": executed,
+        "kv_tiles_grid": grid,
+        "kv_tile_utilization": useful / max(executed, 1),
+        "kv_tiles_skipped": grid - executed,
+    }

@@ -1,0 +1,132 @@
+"""The decode-attention plain version (what the port's wrappers run for
+CPU tensors) against the reference entries ``ops.decode_attention_ragged``
+and ``ops.decode_attention_paged`` — the Pallas kernels in interpret mode,
+as the reference's own tests run them on the CPU — plus the copied
+``slack_report``.
+
+Inputs are float32 so the comparison is about the algorithm: the kernels
+accumulate in f32 and the plain version rounds nothing in f32 either, so
+they agree to f32 rounding of the softmax sums (2e-5, the tolerance of
+the reference's own kernel-vs-oracle tests)."""
+from __future__ import annotations
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels.decode_attention import ops as ref_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ops  # noqa: E402
+
+ATOL = RTOL = 2e-5
+
+
+def _qkv(rng, b, n, h, kv, dh, s):
+    q = rng.standard_normal((b, n, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, s, kv, dh)).astype(np.float32)
+    return q, k, v
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("n", [1, 5, 65])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_dense_plain_matches_reference(n, window, heads):
+    """Ragged rows: an empty row, a short one, a mid one and a full one."""
+    h, kv = heads
+    rng = np.random.default_rng(n)
+    b, dh, s = 4, 16, 160
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 3, 70, s - n], np.int32)
+    want = ref_ops.decode_attention_ragged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        window=window)
+    got = ops.decode_attention_ragged(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        torch.as_tensor(lens), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_dense_scalar_length_broadcasts():
+    """A scalar cache length is the aligned case of the (b,) vector."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.as_tensor(a) for a in _qkv(rng, 3, 4, 4, 4, 16, 64))
+    got = ops.decode_attention_ragged(q, k, v, 20)
+    want = ops.decode_attention_ragged(q, k, v,
+                                       torch.full((3,), 20, dtype=torch.int32))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+def _pool(rng, k_dense, v_dense, lens, n, bs, layout):
+    """Pack a dense cache into a pool: 'fragmented' (random pages),
+    'reversed' (descending pages), 'identity' (in order); unassigned
+    table entries name the trash page, filled with junk."""
+    b, s, kv, dh = k_dense.shape
+    max_blocks = s // bs
+    need = [-(-int(lens[i] + n) // bs) for i in range(b)]
+    n_phys = sum(max(c, 1) for c in need) + 2          # + slack + trash
+    order = np.arange(n_phys - 1)
+    if layout == "fragmented":
+        rng.shuffle(order)
+    elif layout == "reversed":
+        order = order[::-1]
+    tables = np.full((b, max_blocks), n_phys - 1, np.int32)
+    k_pool = (100 * rng.standard_normal((n_phys, bs, kv, dh))).astype(
+        np.float32)
+    v_pool = (100 * rng.standard_normal((n_phys, bs, kv, dh))).astype(
+        np.float32)
+    pi = 0
+    for bi in range(b):
+        for j in range(need[bi]):
+            p = int(order[pi])
+            pi += 1
+            tables[bi, j] = p
+            k_pool[p] = k_dense[bi, j * bs:(j + 1) * bs]
+            v_pool[p] = v_dense[bi, j * bs:(j + 1) * bs]
+    return k_pool, v_pool, tables
+
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("layout", ["fragmented", "reversed", "identity"])
+def test_paged_plain_matches_reference(layout, window):
+    """Hostile tables: scattered and reversed pages, a zero-length row, a
+    single-block row and a full row; junk in unattached pages never leaks."""
+    rng = np.random.default_rng(1)
+    b, n, h, kv, dh, bs, s = 4, 4, 8, 2, 16, 16, 96
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 5, bs - n, s - n], np.int32)
+    k_pool, v_pool, tables = _pool(rng, k, v, lens, n, bs, layout)
+    want = ref_ops.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(lens), jnp.asarray(tables), window=window)
+    got = ops.decode_attention_paged(
+        torch.as_tensor(q), torch.as_tensor(k_pool), torch.as_tensor(v_pool),
+        torch.as_tensor(lens), torch.as_tensor(tables), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+    # and the paged plain version equals the dense one on the same content
+    dense = ops.decode_attention_ragged(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        torch.as_tensor(lens), window=window)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.parametrize("window", [None, 7, 100])
+@pytest.mark.parametrize("k_block", [16, 128])
+@pytest.mark.parametrize("n", [1, 5, 64, 65, 130])
+def test_slack_report_matches_reference(n, k_block, window):
+    lens = [0, 1, 15, 16, 100, 300]
+    active = [True, False, True, True, False, True]
+    kw = dict(head_dim=80, k_block=k_block, window=window, active=active)
+    assert ops.slack_report(n, lens, 512, **kw) == \
+        ref_ops.slack_report(n, lens, 512, **kw)
+
+
+def test_wrapper_rejects_unknown_device_types():
+    q = torch.zeros((1, 1, 4, 16), device="meta")
+    with pytest.raises(ValueError, match="no decode-attention path"):
+        ops.decode_attention_ragged(q, q, q, 0)
