@@ -9,7 +9,7 @@ import importlib
 
 from repro_torch.core.arch import ArchConfig
 
-ARCH_IDS = ["stablelm_3b", "wedlm8b_like"]
+ARCH_IDS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m"]
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:

@@ -4,9 +4,10 @@ On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b \
       --requests 8 --slots 4 --serve-mode speculative --kv-block-size 16
 
-On the CPU, at the reduced size (plain PyTorch attention):
+On the CPU, at the reduced size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
-      --arch stablelm_3b --tiny --requests 8 --slots 2 --tokens 16
+      --arch granite_moe_3b_a800m --tiny --requests 6 --slots 2 \
+      --serve-mode speculative --kv-block-size 16 --tokens 16
 
 Weights are random, drawn from ``--seed``; prompts come from a numpy
 generator with the same seed.  The ServingLoop splits the NFP budget of
@@ -22,6 +23,8 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
+from repro_torch.kernels.decode_attention import ops as attn_ops
+from repro_torch.kernels.moe_ffn import ops as moe_ops
 from repro_torch.models import init_model
 from repro_torch.serving import DecodeEngine, PagedKVConfig, ServingLoop
 
@@ -42,6 +45,11 @@ def serve(args) -> None:
     for _ in range(args.requests):
         loop.submit(rng.integers(0, cfg.vocab_size, size=args.prompt_len),
                     args.tokens)
+    kernels = {"decode_attention_dense": attn_ops.decode_attention_ragged,
+               "decode_attention_paged": attn_ops.decode_attention_paged,
+               "moe_ffn": moe_ops.grouped_ffn_padded}
+    for fn in kernels.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     results = loop.run()
     if device.type == "cuda":
@@ -59,6 +67,9 @@ def serve(args) -> None:
           f"{s['tokens_per_forward']:.2f} tok/fwd, "
           f"max {s['max_positions_per_forward']} positions/fwd)")
     print(f"throughput: {s['tokens'] / max(dt, 1e-9):.1f} tok/s on {where}")
+    print("kernel launches: " + ", ".join(
+        f"{name} {fn.launches}" for name, fn in kernels.items())
+        + ("" if device.type == "cuda" else " (plain versions on the CPU)"))
     if paged is not None:
         print(f"paged kv: block_size={s['kv_block_size']} "
               f"blocks={s['kv_blocks']} peak_used={s['kv_blocks_peak']}  "

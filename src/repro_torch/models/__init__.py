@@ -1,4 +1,4 @@
-"""repro_torch.models — attention-only decoders (dense FFN, GQA/MHA)."""
+"""repro_torch.models — attention-only decoders (GQA/MHA; dense or MoE FFN)."""
 from repro_torch.models.transformer import (forward, init_cache,
                                             init_model, init_paged_cache,
                                             make_segments)

@@ -1,4 +1,4 @@
-"""Decoder assembly for attention-only architectures.
+"""Decoder assembly for attention-only architectures (dense or MoE FFN).
 
 Layers are grouped into *segments* of identical kind, and each segment's
 parameters and cache are STACKED along a leading layer axis, exactly as
@@ -12,7 +12,10 @@ Modes:
   prefill — same math, fills the cache in place from position 0.
   decode  — the multi-position decode forward (Eq. 2): N new positions
             against a cache of length ``cache_len``.
-SSM / hybrid segments, MoE FFNs and the encoder are not ported.
+The FFN is a dense MLP or the MoE FFN (``models.moe``); ``use_kernel``
+reaches the MoE FFN in every mode and attention in decode mode (prefill
+attention has no kernel).  SSM / hybrid segments and the encoder are not
+ported.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from repro_torch.models.attention import (attention_decode, attention_full,
 from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
                                        init_mlp, init_rmsnorm, lm_head, mlp,
                                        rmsnorm, unembed_tied)
+from repro_torch.models.moe import init_moe, moe_ffn
 
 Tensor = torch.Tensor
 
@@ -54,7 +58,7 @@ def check_ported(cfg: ArchConfig) -> None:
     if cfg.encoder is not None or cfg.shared_attention:
         raise NotImplementedError(f"{cfg.name}: encoders and shared "
                                   "attention are not ported yet")
-    if cfg.ffn.kind != "dense":
+    if cfg.ffn.kind not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: {cfg.ffn.kind} FFN is not "
                                   "ported yet")
 
@@ -89,12 +93,16 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     segs = []
     for _, count in make_segments(cfg):
         lead = (count,)
+        if cfg.ffn.kind == "moe":
+            ffn = init_moe(generator, d, cfg.ffn, dtype, lead)
+        else:
+            ffn = init_mlp(generator, d, cfg.ffn.d_ff, cfg.ffn.activation,
+                           dtype, lead)
         segs.append({
             "ln1": init_rmsnorm(generator, d, dtype, lead),
             "attn": init_attention(generator, d, cfg.attention, dtype, lead),
             "ln2": init_rmsnorm(generator, d, dtype, lead),
-            "ffn": init_mlp(generator, d, cfg.ffn.d_ff, cfg.ffn.activation,
-                            dtype, lead),
+            "ffn": ffn,
         })
     params["segments"] = segs
     return params
@@ -128,8 +136,19 @@ def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
 # Forward
 # ===========================================================================
 
+def _ffn_apply(lp, cfg: ArchConfig, h: Tensor, use_kernel: bool,
+               routing_override) -> Tuple[Tensor, Optional[Tensor]]:
+    """(out, aux loss); a dense FFN has no aux loss (None)."""
+    if cfg.ffn.kind == "moe":
+        return moe_ffn(lp["ffn"], cfg.ffn, h,
+                       routing_override=routing_override,
+                       use_kernel=use_kernel)
+    return mlp(lp["ffn"], h, cfg.ffn.activation), None
+
+
 def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
-                mode: str, use_kernel: bool, block_tables) -> Tensor:
+                mode: str, use_kernel: bool, block_tables, routing_override
+                ) -> Tuple[Tensor, Optional[Tensor]]:
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         att, _ = attention_decode(lp["attn"], cfg.attention, h, cache,
@@ -141,18 +160,23 @@ def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
                                 cache_len=0)
     x = x + att
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["ffn"], h2, cfg.ffn.activation)
+    ff, aux = _ffn_apply(lp, cfg, h2, use_kernel, routing_override)
+    return x + ff, aux
 
 
 def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             cache: Optional[Dict] = None, cache_len=0,
             use_kernel: bool = False, block_tables: Optional[Tensor] = None,
+            routing_override=None,
             ) -> Tuple[Tensor, Optional[Dict], Tensor, Tensor]:
-    """Returns (logits, cache, moe_aux_loss, hidden), as the reference.
+    """Returns (logits, cache, moe_aux_loss, hidden), as the reference;
+    the aux loss is summed over the MoE layers.
 
     ``cache`` is updated in place and returned.  ``block_tables`` (b,
     max_blocks) int32 switches decode-mode attention onto the PAGED pool
-    (``init_paged_cache``) with a (b,) ``cache_len``.  ``hidden`` is the
+    (``init_paged_cache``) with a (b,) ``cache_len``.
+    ``routing_override`` (idx (T, k), weights (T, k)) fixes every MoE
+    layer's routing (the paper's controlled patterns).  ``hidden`` is the
     final-norm output (b, s, d) the LM head reads.
     inputs: {"tokens": (b, s) int} or {"embeds": (b, s, d)}.
     """
@@ -166,17 +190,22 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     if mode != "decode":
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    auxes = []
     for si, (_, count) in enumerate(make_segments(cfg)):
         sp = params["segments"][si]
         sc = None if cache is None else cache["segments"][si]
         for i in range(count):
-            x = _attn_layer(_layer(sp, i), cfg, x, positions,
-                            None if sc is None else _layer(sc, i), cache_len,
-                            mode, use_kernel, block_tables)
+            x, layer_aux = _attn_layer(
+                _layer(sp, i), cfg, x, positions,
+                None if sc is None else _layer(sc, i), cache_len, mode,
+                use_kernel, block_tables, routing_override)
+            if layer_aux is not None:
+                auxes.append(layer_aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         logits = unembed_tied(params["embed"], x)
     else:
         logits = lm_head(params["lm_head"], x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = (torch.stack(auxes).sum() if auxes
+           else torch.zeros((), dtype=torch.float32, device=x.device))
     return logits, cache, aux, x

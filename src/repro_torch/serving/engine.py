@@ -153,7 +153,8 @@ class DecodeEngine:
         """tokens: (b, prompt_len).  Returns last-position logits."""
         self._require_dense("prefill")
         logits, _, _, _ = forward(self.params, self.cfg, {"tokens": tokens},
-                                  mode="prefill", cache=self.cache)
+                                  mode="prefill", cache=self.cache,
+                                  use_kernel=self.use_kernel)
         self.cache_len = int(tokens.shape[1])
         return logits[:, -1]
 
@@ -208,7 +209,7 @@ class DecodeEngine:
                              self.device)
         logits, scratch, _, hidden = forward(
             self.params, self.cfg, {"tokens": self._tokens(grid)},
-            mode="prefill", cache=scratch)
+            mode="prefill", cache=scratch, use_kernel=self.use_kernel)
         return rows, logits, scratch, hidden
 
     def prefill_slots(self, prompts: Dict[int, np.ndarray],

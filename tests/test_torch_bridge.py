@@ -1,5 +1,6 @@
 """The weight bridge: the reference's parameter pytree -> the port's
-tensors, leaf for leaf and bit for bit."""
+tensors, leaf for leaf and bit for bit (an MoE tree keeps its f32 router
+inside bf16 expert leaves)."""
 from __future__ import annotations
 
 import pytest
@@ -16,7 +17,7 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import init_model as port_init_model  # noqa: E402
 
-ARCHS = ["stablelm_3b", "wedlm8b_like"]
+ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m"]
 
 
 def _bits(t: "torch.Tensor") -> np.ndarray:
@@ -35,11 +36,11 @@ def test_round_trip_bit_exact(arch, dtype):
                           init_model(jax.random.PRNGKey(0), cfg, dtype=dtype))
     port = params_from_jax(leaves)
     assert jax.tree.structure(port) == jax.tree.structure(leaves)
-    want = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
     for ref, got in zip(jax.tree.leaves(leaves), jax.tree.leaves(port)):
-        assert got.dtype == want and tuple(got.shape) == ref.shape
-        ref_bits = (ref.view(np.int16) if dtype == jnp.bfloat16
-                    else ref.view(np.int32))
+        bf16 = ref.dtype.name == "bfloat16"
+        assert got.dtype == (torch.bfloat16 if bf16 else torch.float32)
+        assert tuple(got.shape) == ref.shape
+        ref_bits = ref.view(np.int16) if bf16 else ref.view(np.int32)
         np.testing.assert_array_equal(_bits(got), ref_bits)
 
 
@@ -52,4 +53,24 @@ def test_port_init_has_reference_layout(arch):
                            torch.Generator().manual_seed(0), "cpu")
     assert jax.tree.structure(port) == jax.tree.structure(ref)
     for r, p in zip(jax.tree.leaves(ref), jax.tree.leaves(port)):
-        assert tuple(p.shape) == r.shape and p.dtype == torch.bfloat16
+        assert tuple(p.shape) == r.shape
+        assert p.dtype == (torch.bfloat16 if r.dtype == jnp.bfloat16
+                           else torch.float32)
+
+
+def test_moe_leaves_cross_with_an_f32_router():
+    """granite's bf16 tree: the stacked router stays f32 across the bridge,
+    every expert leaf bf16, bits unchanged."""
+    cfg = get_config("granite_moe_3b_a800m", reduced=True)
+    leaves = jax.tree.map(np.asarray, init_model(jax.random.PRNGKey(1), cfg))
+    ffn = params_from_jax(leaves)["segments"][0]["ffn"]
+    ref = leaves["segments"][0]["ffn"]
+    assert sorted(ffn) == ["router", "w_down", "w_gate", "w_up"]
+    assert ffn["router"].dtype == torch.float32
+    assert ffn["router"].shape == (cfg.n_layers, cfg.d_model,
+                                   cfg.ffn.n_experts)
+    np.testing.assert_array_equal(ffn["router"].numpy(), ref["router"])
+    for key in ("w_up", "w_gate", "w_down"):
+        assert ffn[key].dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(ffn[key]),
+                                      ref[key].view(np.int16))

@@ -1,8 +1,10 @@
 """The port's serving stack against the reference's on the same weights:
 engine prefill logs and per-step logits, and ``ServingLoop`` token
 streams — greedy and speculative, dense and paged (with a prefix hit),
-the port's kernel flag on and off (its plain version on the CPU), and a
-preemption with recompute-on-resume.
+the port's kernel flag on and off (its plain versions on the CPU), and a
+preemption with recompute-on-resume — for a dense model (reduced
+stablelm_3b) and an MoE one (reduced granite_moe_3b_a800m, whose kernel
+flag also runs the grouped FFN's plain version in every forward).
 
 Weights and caches are float32: the point is the algorithm, and there
 the two stacks agree to float32 rounding, so streams must be identical.
@@ -48,12 +50,14 @@ LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)      # float32 rounding, two layers
 HW = HardwareSpec(**dataclasses.asdict(TPU_V5E))
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = get_config("stablelm_3b", reduced=True)
+@pytest.fixture(scope="module",
+                params=["stablelm_3b", "granite_moe_3b_a800m"],
+                ids=["stablelm", "granite"])
+def model(request):
+    cfg = get_config(request.param, reduced=True)
     params = init_model(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
     port = params_from_jax(jax.tree.map(np.asarray, params))
-    return cfg, port_config("stablelm_3b", reduced=True), params, port
+    return cfg, port_config(request.param, reduced=True), params, port
 
 
 def _prompts(vocab):

@@ -1,8 +1,10 @@
 """The port's ``forward`` against the reference's on the same weights and
 inputs: logits, final hidden states and the caches it writes — prefill,
 multi-position decode with scalar and per-row (b,) lengths, the dense
-cache and the paged pool, and the port's kernel flag (its plain version
-on the CPU).
+cache and the paged pool, and the port's kernel flag (its plain versions
+on the CPU).  The MoE model (reduced granite) also matches the summed
+aux loss; its kernel flag runs the grouped FFN's plain version (f32 h)
+where the reference forward runs ragged_dot.
 
 Weights are float32 so the point is the algorithm; 1e-4 covers the
 float32 rounding of reordered sums through two layers (observed ~4e-6)."""
@@ -26,7 +28,7 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import forward, init_cache, init_paged_cache  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["stablelm_3b", "wedlm8b_like"]
+ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -50,10 +52,11 @@ def _cache_close(port_cache, ref_cache):
 def test_train_mode_logits(model):
     cfg, pcfg, params, port = model
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 9))
-    rl, _, _, rh = ref_forward(params, cfg, {"tokens": jnp.asarray(toks)})
-    pl, _, _, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)})
+    rl, _, ra, rh = ref_forward(params, cfg, {"tokens": jnp.asarray(toks)})
+    pl, _, pa, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)})
     _close(pl, rl)
     _close(ph, rh)
+    _close(pa, ra)
 
 
 @pytest.fixture(scope="module")
@@ -62,20 +65,21 @@ def prefilled(model):
     decode writes it in place)."""
     cfg, pcfg, params, port = model
     toks = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 10))
-    rl, rc, _, rh = ref_forward(
+    rl, rc, ra, rh = ref_forward(
         params, cfg, {"tokens": jnp.asarray(toks)}, mode="prefill",
         cache=ref_init_cache(cfg, 3, 48, dtype=jnp.float32))
-    pl, pc, _, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)},
-                            mode="prefill",
-                            cache=init_cache(pcfg, 3, 48, torch.float32,
-                                             "cpu"))
-    return rl, rc, rh, pl, pc, ph
+    pl, pc, pa, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)},
+                             mode="prefill",
+                             cache=init_cache(pcfg, 3, 48, torch.float32,
+                                              "cpu"))
+    return rl, rc, rh, pl, pc, ph, ra, pa
 
 
 def test_prefill_logits_hidden_cache(prefilled):
-    rl, rc, rh, pl, pc, ph = prefilled
+    rl, rc, rh, pl, pc, ph, ra, pa = prefilled
     _close(pl, rl)
     _close(ph, rh)
+    _close(pa, ra)
     _cache_close(pc, rc)
 
 
@@ -92,10 +96,10 @@ def ref_decode(model, prefilled):
             lens = np.array([10, 4, 7], np.int32) if per_row else 10
             toks = np.random.default_rng(2).integers(0, cfg.vocab_size,
                                                      (3, n))
-            rl, rc2, _, rh = ref_forward(
+            rl, rc2, ra, rh = ref_forward(
                 params, cfg, {"tokens": jnp.asarray(toks)}, mode="decode",
                 cache=rc, cache_len=jnp.asarray(lens))
-            memo[n, per_row] = (lens, toks, rl, rc2, rh)
+            memo[n, per_row] = (lens, toks, rl, rc2, rh, ra)
         return memo[n, per_row]
     return run
 
@@ -108,14 +112,15 @@ def test_dense_decode(model, prefilled, ref_decode, n, per_row, use_kernel):
     per-row lengths (the scheduler's slots)."""
     _, pcfg, _, port = model
     pc = jax.tree.map(torch.clone, prefilled[4])
-    lens, toks, rl, rc2, rh = ref_decode(n, per_row)
-    pl, pc2, _, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)},
+    lens, toks, rl, rc2, rh, ra = ref_decode(n, per_row)
+    pl, pc2, pa, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)},
                              mode="decode", cache=pc,
                              cache_len=(torch.as_tensor(lens) if per_row
                                         else lens),
                              use_kernel=use_kernel)
     _close(pl, rl)
     _close(ph, rh)
+    _close(pa, ra)
     _cache_close(pc2, rc2)
 
 
@@ -141,11 +146,11 @@ def ref_paged_decode(model):
                                       jnp.float32),
                 ref_paged(cfg, n_phys, bs, dtype=jnp.float32))
             toks = rng.integers(0, cfg.vocab_size, (b, n))
-            rl, rc, _, rh = ref_forward(
+            rl, rc, ra, rh = ref_forward(
                 params, cfg, {"tokens": jnp.asarray(toks)}, mode="decode",
                 cache=pool, cache_len=jnp.asarray(lens),
                 block_tables=jnp.asarray(tables))
-            memo[n] = (pool, tables, lens, toks, rl, rc, rh)
+            memo[n] = (pool, tables, lens, toks, rl, rc, rh, ra)
         return memo[n]
     return run
 
@@ -155,18 +160,19 @@ def ref_paged_decode(model):
 def test_paged_decode(model, ref_paged_decode, n, use_kernel):
     """Paged decode over a fragmented pool, against the reference."""
     _, pcfg, _, port = model
-    pool, tables, lens, toks, rl, rc, rh = ref_paged_decode(n)
+    pool, tables, lens, toks, rl, rc, rh, ra = ref_paged_decode(n)
     port_cache = jax.tree.map(lambda a: torch.as_tensor(np.array(a)), pool)
     n_phys, bs = tables.size + 1, 8
     assert jax.tree.structure(port_cache) == jax.tree.structure(
         init_paged_cache(pcfg, n_phys, bs, torch.float32, "cpu"))
-    pl, pc, _, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)},
-                            mode="decode", cache=port_cache,
-                            cache_len=torch.as_tensor(lens),
-                            block_tables=torch.as_tensor(tables),
-                            use_kernel=use_kernel)
+    pl, pc, pa, ph = forward(port, pcfg, {"tokens": torch.as_tensor(toks)},
+                             mode="decode", cache=port_cache,
+                             cache_len=torch.as_tensor(lens),
+                             block_tables=torch.as_tensor(tables),
+                             use_kernel=use_kernel)
     _close(pl, rl)
     _close(ph, rh)
+    _close(pa, ra)
     # the trash page's winner among colliding junk writes is arbitrary
     for ps, rs in zip(pc["segments"], rc["segments"]):
         for key in ("k", "v"):
