@@ -9,7 +9,8 @@ import importlib
 
 from repro_torch.core.arch import ArchConfig
 
-ARCH_IDS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m"]
+ARCH_IDS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m",
+            "falcon_mamba_7b"]
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:

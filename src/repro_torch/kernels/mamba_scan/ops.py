@@ -1,0 +1,128 @@
+"""Mamba1 selective scan: the Hopper kernel's wrappers and its plain
+version.
+
+``selective_scan`` is the counterpart of the reference's jitted wrapper
+of the same name: it pads the positions to the scan chunk
+``select_scan_chunk(s)`` of ``core.granularity`` (M_ssm, 16) with
+``dt = x = B = C = 0`` — identity steps, ``h = exp(0)·h + 0`` — runs
+``selective_scan_padded`` and returns ``y`` of the real positions with
+the state after them.  ``selective_scan_padded`` is the kernel's
+wrapper: on a CUDA tensor it launches ``csrc/mamba_scan.cu`` (see its
+header for the design and what bounds it) or raises; only a tensor on
+the CPU takes the plain version ``selective_scan_ref``.  The padding
+runs on both paths, and the padded steps are computed on both.
+
+Layouts are the reference's: x/dt ``(b, s, di)``, B/C ``(b, s, ds)``,
+A ``(di, ds)``, h0 ``(b, di, ds)``, all float32.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.granularity import round_up, select_scan_chunk
+from repro_torch.kernels.build import load_library
+
+MAX_STATE = 64        # the kernel keeps a channel's ds states in registers
+
+Tensor = torch.Tensor
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURE = [_P] * 8 + [_I] * 4 + [_P]
+
+
+def _kernels() -> ctypes.CDLL:
+    lib = load_library("mamba_scan")
+    lib.mamba_scan.argtypes = _SIGNATURE
+    lib.mamba_scan.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version (the reference's ref.py / _mamba1_scan)
+# ---------------------------------------------------------------------------
+
+def selective_scan_ref(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                       a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """A loop over positions.  Returns (y (b, s, di), h_final (b, di,
+    ds)), float32."""
+    h = h0
+    ys = []
+    for t in range(x.shape[1]):
+        dt_t = dt[:, t]
+        da = torch.exp(dt_t[..., None] * a[None])               # (b, di, ds)
+        dbx = (dt_t * x[:, t])[..., None] * b_in[:, t, None, :]
+        h = da * h + dbx
+        ys.append(torch.einsum("bds,bs->bd", h, c_in[:, t]))
+    return torch.stack(ys, dim=1), h
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor, a: Tensor,
+           h0: Tensor) -> None:
+    bsz, s, di = x.shape
+    ds = a.shape[-1]
+    shapes = {"x": (bsz, s, di), "dt": (bsz, s, di), "b_in": (bsz, s, ds),
+              "c_in": (bsz, s, ds), "a": (di, ds), "h0": (bsz, di, ds)}
+    for name, t in zip(shapes, (x, dt, b_in, c_in, a, h0)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"the selective-scan kernel takes float32; "
+                            f"{name} is {t.dtype}")
+        if tuple(t.shape) != shapes[name]:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{shapes[name]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not 1 <= ds <= MAX_STATE:
+        raise ValueError(f"d_state {ds} outside 1..{MAX_STATE}")
+
+
+def selective_scan_padded(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                          a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """The scan over every given position (already padded).  Returns (y
+    (b, s_pad, di), h after the last position (b, di, ds))."""
+    if x.device.type == "cpu":
+        return selective_scan_ref(x, dt, b_in, c_in, a, h0)
+    if x.device.type != "cuda":
+        raise ValueError(f"no selective-scan path for {x.device}")
+    _check(x, dt, b_in, c_in, a, h0)
+    bsz, s_pad, di = x.shape
+    y = torch.empty_like(x)
+    h = torch.empty_like(h0)
+    err = _kernels().mamba_scan(
+        x.data_ptr(), dt.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
+        a.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(), bsz, s_pad,
+        di, a.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
+    selective_scan_padded.launches += 1
+    return y, h
+
+
+selective_scan_padded.launches = 0
+
+
+def pad_positions(t: Tensor, s_pad: int) -> Tensor:
+    """Zero positions appended to a (b, s, c) tensor, contiguous."""
+    return F.pad(t, (0, 0, 0, s_pad - t.shape[1])).contiguous()
+
+
+def selective_scan(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                   a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """Positions padded to the scan chunk, then the scan.  Returns (y
+    (b, s, di), h_final): the state after the s REAL positions (padded
+    steps are identities)."""
+    s = x.shape[1]
+    s_pad = round_up(s, select_scan_chunk(s))
+    y, h = selective_scan_padded(*(pad_positions(t, s_pad)
+                                   for t in (x, dt, b_in, c_in)),
+                                 a.contiguous(), h0.contiguous())
+    return y[:, :s], h

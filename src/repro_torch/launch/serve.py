@@ -8,6 +8,11 @@ On the CPU, at the reduced size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch granite_moe_3b_a800m --tiny --requests 6 --slots 2 \
       --serve-mode speculative --kv-block-size 16 --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch falcon_mamba_7b --tiny --serve-mode greedy
+
+An SSM model (falcon_mamba_7b) serves greedy on the dense cache only:
+``--kv-block-size`` and ``--serve-mode speculative`` are refused.
 
 Weights are random, drawn from ``--seed``; prompts come from a numpy
 generator with the same seed.  The ServingLoop splits the NFP budget of
@@ -24,6 +29,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.kernels.decode_attention import ops as attn_ops
+from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_ffn import ops as moe_ops
 from repro_torch.models import init_model
 from repro_torch.serving import DecodeEngine, PagedKVConfig, ServingLoop
@@ -47,7 +53,8 @@ def serve(args) -> None:
                     args.tokens)
     kernels = {"decode_attention_dense": attn_ops.decode_attention_ragged,
                "decode_attention_paged": attn_ops.decode_attention_paged,
-               "moe_ffn": moe_ops.grouped_ffn_padded}
+               "moe_ffn": moe_ops.grouped_ffn_padded,
+               "mamba_scan": scan_ops.selective_scan_padded}
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()

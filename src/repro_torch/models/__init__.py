@@ -1,4 +1,5 @@
-"""repro_torch.models — attention-only decoders (GQA/MHA; dense or MoE FFN)."""
+"""repro_torch.models — decoders of attention (GQA/MHA; dense or MoE FFN)
+and Mamba1 SSM layers."""
 from repro_torch.models.transformer import (forward, init_cache,
                                             init_model, init_paged_cache,
                                             make_segments)

@@ -1,21 +1,28 @@
-"""Decoder assembly for attention-only architectures (dense or MoE FFN).
+"""Decoder assembly: attention segments (dense or MoE FFN) and Mamba1 SSM
+segments.
 
 Layers are grouped into *segments* of identical kind, and each segment's
 parameters and cache are STACKED along a leading layer axis, exactly as
 the reference lays out its pytree (so ``bridge.params_from_jax`` maps one
 onto the other leaf for leaf).  Where the reference runs ``lax.scan``
 over the stacked leaves, the port runs a Python loop over layer views of
-the same tensors; the cache views are written in place.
+the same tensors.  Attention caches are written in place through those
+views; SSM states are not: each SSM segment's new (conv, ssm) state is a
+new stacked tensor in the returned cache, for the engine to commit per
+row.
 
 Modes:
   train   — full causal self-attention, no cache.
-  prefill — same math, fills the cache in place from position 0.
+  prefill — same math, fills the cache from position 0: attention writes
+            its K/V from position 0 and SSM layers start from a ZERO state
+            (whatever the cache held), so a reused cache row cannot leak
+            an earlier request's recurrent state into the prompt.
   decode  — the multi-position decode forward (Eq. 2): N new positions
             against a cache of length ``cache_len``.
 The FFN is a dense MLP or the MoE FFN (``models.moe``); ``use_kernel``
-reaches the MoE FFN in every mode and attention in decode mode (prefill
-attention has no kernel).  SSM / hybrid segments and the encoder are not
-ported.
+reaches the MoE FFN and the selective scan in every mode and attention
+in decode mode (prefill attention has no kernel).  Hybrid segments,
+Mamba2, shared attention and the encoder are not ported.
 """
 from __future__ import annotations
 
@@ -23,13 +30,15 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.arch import LAYER_ATTN, ArchConfig
+from repro_torch.core.arch import LAYER_ATTN, LAYER_SSM, ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.models.attention import (attention_decode, attention_full,
                                           init_attention, init_kv_cache)
 from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
                                        init_mlp, init_rmsnorm, lm_head, mlp,
                                        rmsnorm, unembed_tied)
+from repro_torch.models.mamba import (init_mamba1, init_mamba1_state,
+                                      mamba1_block)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 Tensor = torch.Tensor
@@ -50,15 +59,25 @@ def make_segments(cfg: ArchConfig) -> List[Tuple[str, int]]:
     return segs
 
 
+def has_ssm(cfg: ArchConfig) -> bool:
+    """Whether the model carries recurrent state (any non-attention
+    segment)."""
+    return any(kind != LAYER_ATTN for kind, _ in make_segments(cfg))
+
+
 def check_ported(cfg: ArchConfig) -> None:
     """Raise for the parts of the architecture zoo the port lacks."""
-    if any(kind != LAYER_ATTN for kind, _ in make_segments(cfg)):
-        raise NotImplementedError(f"{cfg.name}: SSM / hybrid segments are "
-                                  "not ported yet")
+    kinds = {kind for kind, _ in make_segments(cfg)}
+    if kinds - {LAYER_ATTN, LAYER_SSM}:
+        raise NotImplementedError(f"{cfg.name}: hybrid segments are not "
+                                  "ported yet")
+    if LAYER_SSM in kinds and cfg.ssm.kind != "mamba1":
+        raise NotImplementedError(f"{cfg.name}: {cfg.ssm.kind} SSM blocks "
+                                  "are not ported yet")
     if cfg.encoder is not None or cfg.shared_attention:
         raise NotImplementedError(f"{cfg.name}: encoders and shared "
                                   "attention are not ported yet")
-    if cfg.ffn.kind not in ("dense", "moe"):
+    if LAYER_ATTN in kinds and cfg.ffn.kind not in ("dense", "moe"):
         raise NotImplementedError(f"{cfg.name}: {cfg.ffn.kind} FFN is not "
                                   "ported yet")
 
@@ -91,8 +110,14 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     if not cfg.tie_embeddings:
         params["lm_head"] = init_lm_head(generator, d, cfg.vocab_size, dtype)
     segs = []
-    for _, count in make_segments(cfg):
+    for kind, count in make_segments(cfg):
         lead = (count,)
+        if kind == LAYER_SSM:
+            segs.append({
+                "ln1": init_rmsnorm(generator, d, dtype, lead),
+                "ssm": init_mamba1(generator, d, cfg.ssm, dtype, lead),
+            })
+            continue
         if cfg.ffn.kind == "moe":
             ffn = init_moe(generator, d, cfg.ffn, dtype, lead)
         else:
@@ -110,21 +135,29 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device: DeviceLike = None) -> Dict:
-    """Pre-allocated dense decode cache: per segment, (layers, batch,
-    max_len, kv, dh) K and V."""
+    """Pre-allocated dense decode cache: per attention segment, (layers,
+    batch, max_len, kv, dh) K and V; per SSM segment, (layers, batch,
+    d_conv-1, di) conv history in ``dtype`` and (layers, batch, di, ds)
+    f32 ssm state."""
     check_ported(cfg)
     dev = resolve_device(device)
     return {"segments": [
+        init_mamba1_state(batch, cfg.d_model, cfg.ssm, dtype, dev, (count,))
+        if kind == LAYER_SSM else
         init_kv_cache(batch, max_len, cfg.attention, dtype, dev, (count,))
-        for _, count in make_segments(cfg)]}
+        for kind, count in make_segments(cfg)]}
 
 
 def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
                      dtype=torch.bfloat16, device: DeviceLike = None) -> Dict:
     """Paged decode state: every layer owns an (n_phys, block_size, kv,
     dh) pool; all layers share one logical block layout (the per-slot
-    block tables of ``serving.paged``)."""
+    block tables of ``serving.paged``).  Paging covers K/V only: a model
+    with recurrent state has no sequence axis to page."""
     check_ported(cfg)
+    if has_ssm(cfg):
+        raise ValueError("paged KV cache supports attention-only "
+                         f"architectures; {cfg.name} has SSM segments")
     dev = resolve_device(device)
     return {"segments": [
         init_kv_cache(n_phys, block_size, cfg.attention, dtype, dev,
@@ -164,15 +197,42 @@ def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
     return x + ff, aux
 
 
+def _ssm_layer(lp, cfg: ArchConfig, x: Tensor, state: Optional[Dict],
+               use_kernel: bool) -> Tuple[Tensor, Optional[Dict]]:
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    out, new_state = mamba1_block(lp["ssm"], cfg.ssm, h, state, use_kernel)
+    return x + out, new_state
+
+
+def _ssm_segment(sp: Dict, sc: Optional[Dict], count: int, cfg: ArchConfig,
+                 x: Tensor, mode: str, use_kernel: bool
+                 ) -> Tuple[Tensor, Optional[Dict]]:
+    """Run an SSM segment's layers; returns (x, the segment's new stacked
+    state) — the state given is read, not written.  Prefill starts every
+    layer from a zero state."""
+    states = []
+    for i in range(count):
+        state = None if sc is None else _layer(sc, i)
+        if state is not None and mode == "prefill":
+            state = {k: torch.zeros_like(v) for k, v in state.items()}
+        x, new_state = _ssm_layer(_layer(sp, i), cfg, x, state, use_kernel)
+        states.append(new_state)
+    if sc is None:
+        return x, None
+    return x, {k: torch.stack([st[k] for st in states]) for k in sc}
+
+
 def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             cache: Optional[Dict] = None, cache_len=0,
             use_kernel: bool = False, block_tables: Optional[Tensor] = None,
             routing_override=None,
             ) -> Tuple[Tensor, Optional[Dict], Tensor, Tensor]:
-    """Returns (logits, cache, moe_aux_loss, hidden), as the reference;
-    the aux loss is summed over the MoE layers.
+    """Returns (logits, new_cache, moe_aux_loss, hidden), as the
+    reference; the aux loss is summed over the MoE layers.
 
-    ``cache`` is updated in place and returned.  ``block_tables`` (b,
+    Attention caches are updated in place and reappear in ``new_cache``;
+    SSM segments get NEW stacked states there (the given cache's states
+    are left as they were).  ``block_tables`` (b,
     max_blocks) int32 switches decode-mode attention onto the PAGED pool
     (``init_paged_cache``) with a (b,) ``cache_len``.
     ``routing_override`` (idx (T, k), weights (T, k)) fixes every MoE
@@ -191,9 +251,15 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
     auxes = []
-    for si, (_, count) in enumerate(make_segments(cfg)):
+    new_segments = []
+    for si, (kind, count) in enumerate(make_segments(cfg)):
         sp = params["segments"][si]
         sc = None if cache is None else cache["segments"][si]
+        if kind == LAYER_SSM:
+            x, sc = _ssm_segment(sp, sc, count, cfg, x, mode, use_kernel)
+            new_segments.append(sc)
+            continue
+        new_segments.append(sc)
         for i in range(count):
             x, layer_aux = _attn_layer(
                 _layer(sp, i), cfg, x, positions,
@@ -208,4 +274,5 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
         logits = lm_head(params["lm_head"], x)
     aux = (torch.stack(auxes).sum() if auxes
            else torch.zeros((), dtype=torch.float32, device=x.device))
-    return logits, cache, aux, x
+    new_cache = None if cache is None else {"segments": new_segments}
+    return logits, new_cache, aux, x

@@ -8,10 +8,17 @@ over a dense per-slot cache or a paged block pool.  The NFP budget
 (``core.nfp.parallelism_budget``) sizes the positions per forward.
 
 KV writes are IN PLACE (the reference returns a new cache and commits
-rows selectively).  For attention-only caches that is equivalent: a row
-that advances 0 only wrote at or past its committed length, which every
+rows selectively).  For attention caches that is equivalent: a row that
+advances 0 only wrote at or past its committed length, which every
 causal mask hides until a later forward overwrites it.  Prefill writes
 only the rows of its group, so rows outside it stay bitwise unchanged.
+
+Recurrent SSM state has no length mask, so it is never written in place
+by a decode forward: ``forward`` returns new states and ``commit_slots``
+keeps the old one for every row that advanced 0.  SSM models prefill at
+exact prompt lengths (bucket padding would run through the recurrence)
+and every prefill starts from a zero state, so a reused slot carries
+nothing of its previous request.  They serve on the dense cache only.
 """
 from __future__ import annotations
 
@@ -21,13 +28,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.arch import ArchConfig
+from repro_torch.core.arch import LAYER_SSM, ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.granularity import GranularitySpec
 from repro_torch.core.hardware import H100, HardwareSpec
 from repro_torch.core.nfp import parallelism_budget
-from repro_torch.models.transformer import (check_ported, forward,
-                                            init_cache, init_paged_cache)
+from repro_torch.models.transformer import (check_ported, forward, has_ssm,
+                                            init_cache, init_paged_cache,
+                                            make_segments)
 from repro_torch.serving.paged import BlockManager, PagedKVConfig
 
 Tensor = torch.Tensor
@@ -94,6 +102,7 @@ class DecodeEngine:
                              f"on {self.device}")
         self.dtype = table.dtype               # caches hold the params' type
         self.manager: Optional[BlockManager] = None
+        self.recurrent = has_ssm(self.cfg)     # no paging (init_paged_cache)
         if self.paged is not None:
             bs = self.paged.block_size
             n_blocks = (self.paged.n_blocks if self.paged.n_blocks
@@ -105,8 +114,10 @@ class DecodeEngine:
         else:
             self.cache = init_cache(self.cfg, self.batch, self.max_len,
                                     self.dtype, self.device)
+        attn = self.cfg.attention
         self.gran = GranularitySpec.for_backend(
-            self.cfg.ffn.n_experts, head_dim=self.cfg.attention.head_dim,
+            self.cfg.ffn.n_experts,
+            head_dim=attn.head_dim if attn is not None else 128,
             kv_page=(self.paged.block_size if self.paged else 0))
         # per-slot committed lengths: ``slot_lens`` rides the decode
         # forwards (device int32), ``slot_lens_host`` is its host mirror
@@ -152,22 +163,33 @@ class DecodeEngine:
     def prefill(self, tokens: Tensor) -> Tensor:
         """tokens: (b, prompt_len).  Returns last-position logits."""
         self._require_dense("prefill")
-        logits, _, _, _ = forward(self.params, self.cfg, {"tokens": tokens},
-                                  mode="prefill", cache=self.cache,
-                                  use_kernel=self.use_kernel)
+        logits, self.cache, _, _ = forward(
+            self.params, self.cfg, {"tokens": tokens}, mode="prefill",
+            cache=self.cache, use_kernel=self.use_kernel)
         self.cache_len = int(tokens.shape[1])
         return logits[:, -1]
 
     def decode_step(self, tokens: Tensor, advance: Optional[int] = None
                     ) -> Tensor:
         """One multi-position decode forward over N = tokens.shape[1]
-        positions, committing ``advance`` of them (default all N)."""
+        positions, committing ``advance`` of them (default all N).  A model
+        with recurrent state commits all N or none: its state after a
+        part of the block is not kept."""
         self._require_dense("decode_step")
-        logits, _, _, _ = forward(self.params, self.cfg, {"tokens": tokens},
-                                  mode="decode", cache=self.cache,
-                                  cache_len=self.cache_len,
-                                  use_kernel=self.use_kernel)
-        self.cache_len += tokens.shape[1] if advance is None else int(advance)
+        n = tokens.shape[1]
+        adv = n if advance is None else int(advance)
+        if self.recurrent and adv not in (0, n):
+            raise ValueError(
+                f"{self.cfg.name}: committing {adv} of {n} positions needs "
+                "the recurrent state after each position, which is not "
+                "kept")
+        logits, new_cache, _, _ = forward(
+            self.params, self.cfg, {"tokens": tokens}, mode="decode",
+            cache=self.cache, cache_len=self.cache_len,
+            use_kernel=self.use_kernel)
+        if adv > 0:
+            self.cache = new_cache
+        self.cache_len += adv
         return logits
 
     def greedy_generate(self, prompt: Tensor, steps: int) -> Tensor:
@@ -200,7 +222,8 @@ class DecodeEngine:
     def _prefill_scratch(self, toks: Dict[int, np.ndarray], width: int):
         """Prefill the rows ``sorted(toks)`` (right-padded to ``width``)
         into a fresh dense scratch cache.  Pad positions sit after each
-        prompt, so causality keeps them out of every prompt position."""
+        prompt, so causality keeps them out of every prompt position (an
+        SSM model's groups have no pad positions)."""
         rows = sorted(toks)
         grid = np.zeros((len(rows), width), np.int64)
         for i, s in enumerate(rows):
@@ -234,18 +257,32 @@ class DecodeEngine:
                     "(admission should have rejected it)")
         if self.manager is not None:
             return self._prefill_slots_paged(toks, lens, reserve or {})
-        width = self.prefill_bucket(max(lens.values()))
-        rows, logits, scratch, hidden = self._prefill_scratch(toks, width)
-        idx = torch.as_tensor(rows, device=self.device)
-        for seg, sseg in zip(self.cache["segments"], scratch["segments"]):
-            for key, leaf in seg.items():
-                leaf[:, idx, :width] = sseg[key]
+        if self.recurrent:                 # exact lengths, shortest first
+            by_len: Dict[int, Dict[int, np.ndarray]] = {}
+            for s in toks:
+                by_len.setdefault(lens[s], {})[s] = toks[s]
+            groups = sorted(by_len.items())
+        else:
+            groups = [(self.prefill_bucket(max(lens.values())), toks)]
+        kinds = [kind for kind, _ in make_segments(self.cfg)]
         out: Dict[int, Tuple[Tensor, Tensor]] = {}
-        for i, s in enumerate(rows):
-            self._set_slot_len(s, lens[s])
-            out[s] = (logits[i, lens[s] - 1], hidden[i, lens[s] - 1])
-        self.prefill_log.append({"slots": rows, "bucket": width,
-                                 "computed_tokens": sum(lens.values())})
+        for width, group in groups:
+            rows, logits, scratch, hidden = self._prefill_scratch(group,
+                                                                  width)
+            idx = torch.as_tensor(rows, device=self.device)
+            for kind, seg, sseg in zip(kinds, self.cache["segments"],
+                                       scratch["segments"]):
+                for key, leaf in seg.items():
+                    if kind == LAYER_SSM:      # (layers, batch, ...) state
+                        leaf[:, idx] = sseg[key]
+                    else:                      # (layers, batch, seq, ...)
+                        leaf[:, idx, :width] = sseg[key]
+            for i, s in enumerate(rows):
+                self._set_slot_len(s, lens[s])
+                out[s] = (logits[i, lens[s] - 1], hidden[i, lens[s] - 1])
+            self.prefill_log.append({"slots": rows, "bucket": width,
+                                     "computed_tokens": sum(
+                                         lens[s] for s in rows)})
         return out
 
     def _prefill_slots_paged(self, toks: Dict[int, np.ndarray],
@@ -323,9 +360,10 @@ class DecodeEngine:
 
     def decode_slots(self, tokens: Tensor) -> Tuple[Tensor, Dict, Tensor]:
         """Multi-position decode forward over ALL slots at their own
-        lengths; K/V land in the cache in place but lengths do not move
-        until ``commit_slots``.  tokens: (batch, n).  Returns (logits,
-        cache, hidden).  With ``use_kernel`` the per-slot lengths (and,
+        lengths; K/V land in the cache in place, SSM states come back new
+        in the returned cache, and nothing is committed until
+        ``commit_slots``.  tokens: (batch, n).  Returns (logits, cache,
+        hidden).  With ``use_kernel`` the per-slot lengths (and,
         paged, the block tables) go to ONE decode-attention launch per
         layer for the whole mixed-length batch."""
         tables = self._device_tables() if self.manager is not None else None
@@ -342,9 +380,23 @@ class DecodeEngine:
         fully rejected block) only wrote at or past its committed length,
         positions every mask skips until a later forward overwrites them —
         so adopting the cache wholesale equals the reference's per-row
-        selection, dense or paged."""
+        selection, dense or paged.  SSM states are selected per row, as the
+        reference does: a row that advanced 0 keeps its old state (the
+        mask goes to the device from the host advances, no sync)."""
         adv_host = np.asarray(advances, np.int64)
         self.slot_lens_host = self.slot_lens_host + adv_host
+        if self.recurrent:
+            keep = torch.as_tensor(adv_host > 0, device=self.device)
+            segs = []
+            for (kind, _), old, new in zip(make_segments(self.cfg),
+                                           self.cache["segments"],
+                                           new_cache["segments"]):
+                if kind == LAYER_SSM:
+                    new = {k: torch.where(
+                        keep.view((1, -1) + (1,) * (v.dim() - 2)), v, old[k])
+                        for k, v in new.items()}
+                segs.append(new)
+            new_cache = {"segments": segs}
         self.cache = new_cache
         self.slot_lens += torch.as_tensor(adv_host, dtype=torch.int32,
                                           device=self.device)

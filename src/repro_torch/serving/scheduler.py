@@ -15,7 +15,10 @@ across many concurrent requests:
 Modes: ``greedy`` (one position per request per forward) and
 ``speculative`` (per-request n-gram verification windows).  Both streams
 are identical to each request decoded alone by greedy decoding.  The
-reference's ``diffusion`` and ``mtp`` modes are not ported yet.
+reference's ``diffusion`` and ``mtp`` modes are not ported yet.  A model
+with recurrent (SSM) state serves greedy only: a verify forward advances
+the state over every drafted position, rejected ones included, and the
+state after the accepted prefix is not kept.
 
 Load-pressure policies, as in the reference: ``submit`` backpressure
 (bounded waiting queue -> ``AdmissionRejected``), SLO-class priority
@@ -131,6 +134,11 @@ class ServingLoop:
             raise ValueError(f"serving mode {mode!r}: not ported yet")
         if mode not in self.MODES:
             raise ValueError(f"unknown serving mode {mode!r}")
+        if mode != "greedy" and engine.recurrent:
+            raise ValueError(
+                f"serving mode {mode!r} on {engine.cfg.name}: its recurrent "
+                "SSM state would take in the rejected drafts of every "
+                "verify forward; serve it greedy")
         self.adapter = (SpeculativeSlotAdapter(self) if mode == "speculative"
                         else SlotAdapter(self))
         self.mode = mode
@@ -315,10 +323,10 @@ class ServingLoop:
 
     # ------------------------------------------------------------------
     def _attn_slack(self, width: int) -> Optional[Dict]:
-        """This forward's modelled kernel-granularity slack (None off the
-        kernel path: nothing is tiled there)."""
+        """This forward's modelled decode-attention slack (None off the
+        kernel path, where nothing is tiled, and without attention)."""
         a = self.engine.cfg.attention
-        if not self.engine.use_kernel:
+        if not self.engine.use_kernel or a is None:
             return None
         active = np.zeros(self.engine.batch, bool)
         active[list(self.active)] = True

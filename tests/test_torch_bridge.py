@@ -1,6 +1,7 @@
 """The weight bridge: the reference's parameter pytree -> the port's
 tensors, leaf for leaf and bit for bit (an MoE tree keeps its f32 router
-inside bf16 expert leaves)."""
+inside bf16 expert leaves, a Mamba1 tree its f32 A_log / D / dt_bias
+inside bf16 projections)."""
 from __future__ import annotations
 
 import pytest
@@ -17,7 +18,8 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import init_model as port_init_model  # noqa: E402
 
-ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m"]
+ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m",
+         "falcon_mamba_7b"]
 
 
 def _bits(t: "torch.Tensor") -> np.ndarray:
@@ -73,4 +75,26 @@ def test_moe_leaves_cross_with_an_f32_router():
     for key in ("w_up", "w_gate", "w_down"):
         assert ffn[key].dtype == torch.bfloat16
         np.testing.assert_array_equal(_bits(ffn[key]),
+                                      ref[key].view(np.int16))
+
+
+def test_ssm_leaves_cross_with_f32_state_parameters():
+    """falcon's bf16 tree: the stacked A_log, D and dt_bias stay f32 across
+    the bridge, every projection and the conv bf16, bits unchanged."""
+    cfg = get_config("falcon_mamba_7b", reduced=True)
+    leaves = jax.tree.map(np.asarray, init_model(jax.random.PRNGKey(2), cfg))
+    seg = params_from_jax(leaves)["segments"][0]
+    ref = leaves["segments"][0]["ssm"]
+    assert sorted(seg) == ["ln1", "ssm"]
+    di = cfg.ssm.d_inner(cfg.d_model)
+    f32 = {"A_log": (cfg.n_layers, di, cfg.ssm.d_state),
+           "D": (cfg.n_layers, di), "dt_bias": (cfg.n_layers, di)}
+    for key, shape in f32.items():
+        assert seg["ssm"][key].dtype == torch.float32
+        assert tuple(seg["ssm"][key].shape) == shape
+        np.testing.assert_array_equal(seg["ssm"][key].numpy(), ref[key])
+    for key in ("in_x", "in_z", "conv_w", "conv_b", "x_proj", "dt_proj",
+                "out_proj"):
+        assert seg["ssm"][key].dtype == torch.bfloat16
+        np.testing.assert_array_equal(_bits(seg["ssm"][key]),
                                       ref[key].view(np.int16))

@@ -1,5 +1,5 @@
-"""The Hopper kernels (decode attention, the fused grouped MoE FFN) against
-their plain versions on the card.  Needs an NVIDIA GPU (marker ``gpu``;
+"""The Hopper kernels (decode attention, the fused grouped MoE FFN, the
+Mamba1 selective scan) against their plain versions on the card.  Needs an NVIDIA GPU (marker ``gpu``;
 skipped elsewhere) and imports no JAX, so it runs on the machine with the
 card:
 
@@ -11,7 +11,10 @@ reference's ref.py), so they differ by a few bf16 steps (atol 3e-2, rtol
 2e-2).  MoE FFN: both sides compute in f32 and round once to bf16; their
 sums run in other orders, so an output may round to the neighbouring bf16
 value (rtol 8e-3 = two bf16 steps, atol 2e-2 for outputs near 0 whose f32
-sums cancel terms of magnitude ~100)."""
+sums cancel terms of magnitude ~100).  Selective scan: both sides f32; the
+kernel may fuse each step's multiply-add and sums y over ds in another
+order, about one rounding per step, which the decaying recurrence keeps
+from growing (atol = rtol = 1e-4)."""
 from __future__ import annotations
 
 import numpy as np
@@ -23,6 +26,7 @@ pytestmark = pytest.mark.gpu
 
 TOL = dict(atol=3e-2, rtol=2e-2)
 MOE_TOL = dict(atol=2e-2, rtol=8e-3)
+SCAN_TOL = dict(atol=1e-4, rtol=1e-4)
 
 
 def _need_card():
@@ -41,6 +45,13 @@ def ops():
 def moe_ops():
     _need_card()
     from repro_torch.kernels.moe_ffn import ops
+    return ops
+
+
+@pytest.fixture
+def scan_ops():
+    _need_card()
+    from repro_torch.kernels.mamba_scan import ops
     return ops
 
 
@@ -197,3 +208,56 @@ def test_moe_kernel_refuses_what_it_does_not_take(moe_ops):
     with pytest.raises(ValueError, match="token_block"):
         moe_ops.grouped_ffn_padded(x, w["w_gate"], w["w_up"], w["w_down"],
                                    be, be, token_block=8, activation="swiglu")
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 selective scan
+# ---------------------------------------------------------------------------
+
+def _scan_inputs(g, b, s, di, ds):
+    """The block's value ranges: dt a softplus, A = -exp(A_log) with
+    falcon's A_log = log(1..ds), a nonzero h0."""
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    a = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device="cuda").expand(di, ds).contiguous()
+    return (randn(b, s, di), torch.nn.functional.softplus(randn(b, s, di)),
+            randn(b, s, ds), randn(b, s, ds), a, randn(b, di, ds))
+
+
+@pytest.mark.parametrize("s", [1, 17, 48])
+@pytest.mark.parametrize("ds,di", [(16, 8192), (8, 128)],
+                         ids=["falcon", "reduced"])
+def test_scan_kernel_matches_plain(scan_ops, ds, di, s):
+    """falcon widths (di 8192, ds 16) and the reduced config's (ds 8)."""
+    g = torch.Generator(device="cuda").manual_seed(s + ds)
+    args = _scan_inputs(g, 4, s, di, ds)
+    before = scan_ops.selective_scan_padded.launches
+    y, h = scan_ops.selective_scan(*args)
+    assert scan_ops.selective_scan_padded.launches == before + 1
+    yr, hr = scan_ops.selective_scan_ref(*args)
+    torch.testing.assert_close(y, yr, **SCAN_TOL)
+    torch.testing.assert_close(h, hr, **SCAN_TOL)
+
+
+def test_scan_kernel_state_ignores_padding(scan_ops):
+    """5 real positions padded to 16 and to 48: the same state, bitwise."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x, dt, b_in, c_in, a, h0 = _scan_inputs(g, 2, 5, 8192, 16)
+    states = []
+    for s_pad in (16, 48):
+        _, h = scan_ops.selective_scan_padded(
+            *(scan_ops.pad_positions(t, s_pad) for t in (x, dt, b_in, c_in)),
+            a, h0)
+        states.append(h)
+    assert torch.equal(states[0], states[1])
+
+
+def test_scan_kernel_refuses_what_it_does_not_take(scan_ops):
+    g = torch.Generator(device="cuda").manual_seed(0)
+    args = list(_scan_inputs(g, 1, 16, 32, 8))
+    with pytest.raises(TypeError, match="float32"):
+        scan_ops.selective_scan_padded(args[0].half(), *args[1:])
+    big = list(_scan_inputs(g, 1, 16, 32, 65))
+    with pytest.raises(ValueError, match="d_state"):
+        scan_ops.selective_scan_padded(*big)
