@@ -14,24 +14,29 @@ Phases, in order; any failure exits non-zero:
                 dh = 128) and granite_moe_3b_a800m (h = 24, kv = 8, dh = 64)
                 shapes: n in {1, 4, 16, 65}, ragged lengths with an empty
                 and a full row, fragmented and reversed block tables, with
-                and without a window; the executed kv tiles must equal
-                slack_report's.  The fused grouped MoE FFN against its
-                plain version at granite shapes (E 40, top-8, d 1536, f 512,
-                swiglu) for T in {1, 4, 16, 40, 41, 256} under balanced,
-                skewed and router routing, gelu at f 1024 and llada_mini
-                shapes (E 256, d 2048) at T = 4; executed blocks must equal
-                sum ceil(g_e / token_block), and a row must give bitwise the
-                same output at T = 1 and T = 41 (junk in the padding rows).
+                and without a window; then the paged kernel's pipeline:
+                lengths 0, 1, 15, 16, 17 and 255 in a 32-page table (more
+                pages than its ring holds), n in {1, 16, 17}; the executed
+                kv tiles must equal slack_report's.  The fused grouped MoE
+                FFN against its plain version at granite shapes (E 40,
+                top-8, d 1536, f 512, swiglu) for T in {1, 4, 16, 40, 41,
+                256} under balanced, skewed and router routing, every row
+                on one expert (T = 16, 41), f 1024 swiglu and gelu (T = 4 /
+                16, 41) and llada_mini shapes (E 256, d 2048) at T = 4;
+                executed blocks must equal sum ceil(g_e / token_block), and
+                a row must give bitwise the same output at T = 1 and T = 41
+                (junk in the padding rows).
                 The Mamba1 selective scan against its plain version at
                 falcon_mamba_7b widths (di 8192, ds 16) for b in {1, 4}
                 and s in {1, 5, 16, 17, 48, 200} with a nonzero h0: y and
                 the final state, and the state after the s real positions
                 bitwise the same under two paddings.  Then times each
-                kernel, its plain version and a library call
-                (scaled_dot_product_attention; torch._grouped_mm; none
-                computes a selective scan), never called by the port, and
-                prints the MoE kernel's M_moe / tau staircase over T and
-                the scan's M_ssm staircase over n.
+                kernel (decode attention at n = 1 and 16), its plain
+                version and a library call (scaled_dot_product_attention;
+                torch._grouped_mm; none computes a selective scan), never
+                called by the port, the launch floor (a one-element add_
+                under the same timing), and prints the MoE kernel's M_moe /
+                tau staircase over T and the scan's M_ssm staircase over n.
   4. serving  — full-size stablelm_3b, then full-size granite_moe_3b_a800m,
                 then full-size falcon_mamba_7b, each with seeded random
                 bf16 weights, 4 slots, max_len 256,
@@ -162,14 +167,23 @@ def time_ms(fn, flush, iters: int = 30) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
+def launch_floor_ms() -> float:
+    """The device time a launch of no work reads as under ``time_ms``: a
+    one-element ``add_``.  Decode attention's byte bound lies below it."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    one = torch.zeros(1, device="cuda")
+    return time_ms(lambda: one.add_(1.0), flush)
+
+
 # ---------------------------------------------------------------------------
 # phase 3a: decode attention against its plain version
 # ---------------------------------------------------------------------------
 
-def kernel_inputs(*, paged, n, h, kv, dh, lens, layout="", seed=0):
-    """q plus a dense cache, or the same content packed into a paged pool
-    whose pages follow ``layout``; the trash page holds large junk that a
-    leaking mask would show."""
+def kernel_inputs(*, paged, n, h, kv, dh, lens, layout="", seed=0,
+                  max_len=MAX_LEN):
+    """q plus a dense cache of ``max_len`` positions, or the same content
+    packed into a paged pool whose pages follow ``layout``; the trash page
+    holds large junk that a leaking mask would show."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     b = len(lens)
 
@@ -180,10 +194,10 @@ def kernel_inputs(*, paged, n, h, kv, dh, lens, layout="", seed=0):
     q = randn(b, n, h, dh)
     lens_t = torch.as_tensor(lens, dtype=torch.int32, device="cuda")
     if not paged:
-        return q, randn(b, MAX_LEN, kv, dh), randn(b, MAX_LEN, kv, dh), \
+        return q, randn(b, max_len, kv, dh), randn(b, max_len, kv, dh), \
             lens_t, None
     bs = 16
-    max_blocks = MAX_LEN // bs
+    max_blocks = max_len // bs
     n_phys = b * max_blocks + 1                        # + trash page
     order = np.arange(n_phys - 1)
     if layout == "fragmented":
@@ -254,6 +268,39 @@ def check_kernels(ops) -> dict:
                                 f"{where}: kernel ran {int(tiles.item())} kv "
                                 f"tiles, slack_report says {want}")
                         cases += 1
+    # the paged kernel's pipeline: rows of up to 17 pages in a 32-page
+    # table (more than the ring's 12 chunks in flight), lengths at page
+    # edges, an empty row, n of 1, 16 (one m-tile) and 17 (two m-tiles;
+    # with GQA g = 4, 68 rows: a 64-row chunk and a 4-row one)
+    lens = [0, 1, 15, 16, 17, 255]
+    for shape, (h, kv, dh) in shapes.items():
+        for n in (1, 16, 17):
+            for window in (None, 48):
+                q, k, v, lens_t, bt = kernel_inputs(
+                    paged=True, n=n, h=h, kv=kv, dh=dh, lens=lens,
+                    layout="fragmented", seed=cases, max_len=2 * MAX_LEN)
+                tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+                out = ops.decode_attention_paged(q, k, v, lens_t, bt,
+                                                 window=window, tiles=tiles)
+                ref = ops.decode_attention_paged_ref(q, k, v, lens_t, bt,
+                                                     window=window)
+                rep = ops.slack_report(n, lens, 2 * MAX_LEN, head_dim=dh,
+                                       k_block=16, window=window)
+                torch.cuda.synchronize()
+                e = (out.float() - ref.float()).abs()
+                bad = e > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
+                err["paged"] = max(err["paged"], float(e.max()))
+                where = f"paged {shape} n={n} window={window} lens={lens}"
+                if not torch.isfinite(out).all() or bad.any():
+                    raise AssertionError(
+                        f"kernel disagrees with its plain version: {where}: "
+                        f"max abs err {float(e.max()):.4g}")
+                want = kv * rep["kv_tiles_executed"]
+                if int(tiles.item()) != want:
+                    raise AssertionError(
+                        f"{where}: kernel ran {int(tiles.item())} kv tiles, "
+                        f"slack_report says {want}")
+                cases += 1
     print(f"kernels: {cases} decode-attention cases agree with the plain "
           f"version within atol={KERNEL_ATOL} rtol={KERNEL_RTOL} (bf16); "
           f"executed kv tiles == slack_report; max abs err "
@@ -350,6 +397,8 @@ def moe_inputs(moe_ops, moe, weights, *, k, t, routing, seed=0) -> dict:
         idx = moe.balanced_routing(t, k, e, device="cuda")
     elif routing == "skewed":
         idx = moe.skewed_routing(t, k, e, device="cuda")
+    elif routing == "one expert":            # every row on expert 0
+        idx = torch.zeros((t, k), dtype=torch.long, device="cuda")
     else:
         router = torch.randn((d, e), generator=g, device="cuda") * 0.02
         _, idx, _ = moe.route_topk(router, x_tok, k)
@@ -395,8 +444,14 @@ def check_moe(moe_ops, moe) -> float:
     for t in (1, 4, 16, 40, 41, 256):
         for routing in ("balanced", "skewed", "router"):
             cases.append(("granite", granite, k, t, routing))
+    for t in (16, 41):
+        cases.append(("granite", granite, k, t, "one expert"))
+    wide = moe_weights(e, d, 1024, seed=5)
+    for t in (4, 41):
+        cases.append(("swiglu f=1024", wide, k, t, "router"))
     gelu = moe_weights(e, d, 1024, gated=False, seed=2)
-    cases.append(("gelu f=1024", gelu, k, 16, "router"))
+    for t in (16, 41):
+        cases.append(("gelu f=1024", gelu, k, t, "router"))
     llada = moe_weights(LLADA_MOE[0], LLADA_MOE[2], LLADA_MOE[3], seed=3)
     cases.append(("llada_mini", llada, LLADA_MOE[1], 4, "router"))
     err = 0.0
@@ -498,6 +553,14 @@ def moe_bound_ms(a, d, f) -> tuple:
     return _bound(active * 3 * d * f * 2 + 2 * m * d * 2, 2 * 3 * rows * d * f)
 
 
+def read_ms(n_bytes, flush) -> float:
+    """Device time of one PyTorch reduction reading ``n_bytes`` of bf16
+    once: what streaming the kernel's weight bytes takes on this card in
+    practice, against the 3.35 TB/s of ``moe_bound_ms``."""
+    buf = torch.ones(n_bytes // 2, dtype=torch.bfloat16, device="cuda")
+    return time_ms(lambda: buf.sum(dtype=torch.float32), flush)
+
+
 def time_moe(moe_ops, moe, weights) -> dict:
     """Kernel, plain, library and bound at granite decode (T = 4, 4 slots
     of 1 token, balanced and skewed) and prefill (T = 256, router), then
@@ -518,6 +581,8 @@ def time_moe(moe_ops, moe, weights) -> dict:
             "plain_ms": time_ms(lambda: moe_call(moe_ops, weights, a,
                                                  plain=True), flush),
             "library_ms": time_ms(lib, flush), "library": lib_name,
+            "read_ms": read_ms(sum(1 for g in a["gs"].tolist() if g)
+                               * 3 * d * f * 2, flush),
             "bound_ms": bound, "bound_by": by, "token_block": a["tb"],
             "blocks": sum(-(-g // a["tb"]) for g in a["gs"].tolist())}
     stair = {}
@@ -1235,14 +1300,17 @@ def main() -> int:
     for name, (path, log) in built.items():
         print(f"  {name}: {path.name}")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("entry function" in line or "registers" in line
+                    or "spill" in line):
                 print(f"    {line.strip()}")
 
     # 3. kernels
     err = check_kernels(ops)
-    times = time_kernels(ops, n=1)
-    for n in (1, 16):
-        t = times if n == 1 else time_kernels(ops, n=n)
+    floor = launch_floor_ms()
+    print(f"  launch floor (one-element add_ under the same timing): "
+          f"{floor:.4f} ms [{card}]")
+    times = {n: time_kernels(ops, n=n) for n in (1, 16)}
+    for n, t in times.items():
         for mode, r in t.items():
             print(f"  {mode} n={n}: kernel {r['ms']:.4f} ms, plain "
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
@@ -1259,7 +1327,8 @@ def main() -> int:
               f"{r['blocks']} blocks): kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, {r['library']} "
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
-              f"({r['bound_by']}) [{card}]")
+              f"({r['bound_by']}), a torch sum over the active experts' "
+              f"weight bytes {r['read_ms']:.4f} ms [{card}]")
     print("  moe staircase (balanced routing; T: kernel ms, token block, "
           "blocks): " + ", ".join(
               f"{t}: {ms:.4f} ({tb}, {nb})"
@@ -1295,9 +1364,10 @@ def main() -> int:
     # 5. report
     src = "src/repro_torch/csrc/decode_attention.cu"
     kernels = []
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for mode, fn, line in (("dense", "decode_attention_dense", 123),
                            ("paged", "decode_attention_paged", 186)):
-        r = times[mode]
+        r = times[1][mode]
         kernels.append({
             "name": fn, "route": "cuda", "source": src,
             "replaces": f"src/repro/kernels/decode_attention/kernel.py:{line}",
@@ -1306,7 +1376,9 @@ def main() -> int:
             "max_abs_err": err[mode],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            "n16": {key: times[16][mode][key] for key in keys},
+            "launch_floor_ms": floor})
     r = moe_times["decode_balanced"]
     kernels.append({
         "name": "moe_ffn", "route": "cuda",
@@ -1318,10 +1390,11 @@ def main() -> int:
         "ms": r["ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"],
-        "prefill": {key: moe_times["prefill_router"][key] for key in
-                    ("ms", "plain_ms", "bound_ms", "bound_by",
-                     "library_ms")}})
-    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        "prefill": {key: moe_times["prefill_router"][key] for key in keys},
+        "decode_skewed": {key: moe_times["decode_skewed"][key]
+                          for key in keys},
+        "staircase_ms": {t: ms for t, (ms, _, _) in
+                         moe_times["staircase"].items()}})
     kernels.append({
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",

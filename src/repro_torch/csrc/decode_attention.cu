@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of the reference package,
 // src/repro/kernels/decode_attention/kernel.py: decode_attention_pallas
-// (dense per-slot cache) and decode_attention_paged_pallas (global paged
-// pool + block tables).  Both share the Pallas body _attn_kernel; here
-// both share attn_kernel<kPaged>.
+// (dense per-slot cache; dense_kernel here) and
+// decode_attention_paged_pallas (global paged pool + block tables;
+// paged_kernel here).  Both Pallas entries share the body _attn_kernel.
 //
 // What it computes.  For batch row b, the n new query positions sit at
 // logical positions len_b .. len_b+n-1 (their K/V already written to the
@@ -14,37 +14,53 @@
 // folded into the rows of one block, as the Pallas kernel folds them
 // into M = g*q_block.
 //
-// Grid.  One block per (q tile, kv head, batch row).  The q tile is
-// select_q_block(n, dh) of the port's core/granularity.py, so the NFP
-// predictor and this launch read the same M_attn.  Padded rows of the
-// last q tile (query index >= n) are SKIPPED: they are neither loaded,
-// computed nor stored; the tile quantization shows in the number of
-// blocks, not in wasted row work.
+// Grid (both modes).  One block per (q tile, kv head, batch row).  The q
+// tile is select_q_block(n, dh) of the port's core/granularity.py, so the
+// NFP predictor and this launch read the same M_attn.  Padded rows of the
+// last q tile (query index >= n) are neither loaded nor stored.
 //
 // The kv loop is the TPU's sequential grid axis.  Its bounds are the
 // Pallas skip rule (kernel.py:70-77) turned into loop limits:
 //   hi_tile = min(n_kv_tiles, cdiv(len_b + min(n, (iq+1)*q_block), k_block))
 //   lo_tile = window ? max(0, floor((len_b + iq*q_block - window + 1) / k_block)) : 0
 // so a block executes exactly the tiles ops.slack_report counts as
-// kv_tiles_executed (an optional device counter adds them up).
+// kv_tiles_executed (an optional device counter adds them up).  Scores are
+// masked in logical positions (kernel.py:93-113) to the Pallas NEG_INF, so
+// a tile a row cannot see adds nothing once a visible one arrives; an
+// empty row (l == 0) outputs 0.
 //
-// Per tile.  One K and one V tile (k_block x dh bf16: a 16-position
-// page, or the 128-position dense tile) are staged in shared memory, the
-// scores of up to 64 resident query rows are computed and masked in
-// logical positions (kernel.py:93-113), the online-softmax state is
-// updated, and the f32 accumulators in shared memory absorb P·V.  An
-// empty row (l == 0) outputs 0.  Blocks with more than 64 valid rows
-// (GQA with g*n > 64) walk their rows in chunks of 64, re-reading K/V.
-//
-// What bounds it.  Decode attention is memory-bound on this card: the
+// What bounds it on this card.  Decode attention is memory-bound: the
 // least time is the K/V bytes of the executed tiles (plus q and o) over
-// 3.35 TB/s.  The design keeps every K/V byte to one read from device
-// memory per block (staged once per tile, reused by all resident rows of
-// the block, 16-byte vector loads), skips tiles outside the rows' range
-// instead of masking them, and never materializes the scores outside
-// shared memory.  It does not yet overlap the next tile's loads with the
-// current tile's math (no cp.async/TMA pipeline) and computes on CUDA
-// cores, not tensor cores: work for a later change.
+// 3.35 TB/s — under a microsecond at serving lengths, below the launch
+// floor.  What a block actually waits for is latency: the row length and
+// block table, then its pages, each a round trip to device memory.
+//
+// Dense mode (dense_kernel): one 128-position tile per step, staged in
+// shared memory by 16-byte loads, scores, softmax and P·V on CUDA cores
+// with four barriers per tile.  At serving lengths that is one or two
+// tiles, so its latency is a single round trip.
+//
+// Paged mode (paged_kernel).  A page holds only 16 positions, so the dense
+// mode's tile-by-tile walk would pay a round trip and four barriers per
+// page.  Instead the block walks the executed position range in 16-position
+// chunks (a page when bs = 16), four chunks to a pipeline step, in a ring
+// of three steps in shared memory: the 16-byte cp.async.cg copies of the
+// next two steps (eight pages of K and V, their addresses read from the
+// block table by the block itself) are in flight while one step is
+// computed, with one barrier per step.  The kv range is split inside the
+// block: with one 16-row m-tile of query rows (n = 1 up to 16 rows of
+// g·n) each of the four warps takes every fourth chunk, with two m-tiles
+// two warps share a tile and take every second chunk, with three or four
+// each warp takes one m-tile and every chunk.  Each warp keeps its own
+// running max, sum and f32 accumulator in registers; at the end the
+// partials of one m-tile are merged in split order 0, 1, 2, 3, so the
+// result is deterministic.  The math runs on tensor cores
+// (mma.sync.m16n8k16, f32 accumulation; query rows past the block's rows
+// are zero): Q·Kᵀ from bf16 q and K, exact products; P·V with the f32
+// probabilities split into bf16 hi + lo, two products per step, so P
+// keeps about 16 bits, as the Pallas kernel's f32 p.  Rows of shared
+// memory carry a 16-byte pad, so ldmatrix reads them without bank
+// conflicts.
 //
 // Accepted inputs: bf16 q/k/v, dh % 16 == 0 and dh <= 128, k_block <= 128,
 // contiguous tensors, 16-byte-aligned bases.  The C entry points return
@@ -56,7 +72,11 @@
 
 #include <algorithm>
 
+#include "mma_sync.cuh"
+
 namespace {
+
+using namespace mma_sync;
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
@@ -123,8 +143,7 @@ __device__ inline float warp_sum(float x) {
   return x;
 }
 
-template <bool kPaged>
-__global__ void __launch_bounds__(kThreads) attn_kernel(Params p) {
+__global__ void __launch_bounds__(kThreads) dense_kernel(Params p) {
   extern __shared__ uint32_t smem[];
   const int iq = blockIdx.x, kh = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -172,19 +191,12 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Params p) {
 
     for (int tile = lo_tile; tile < hi_tile; ++tile) {
       // ---- stage one K and one V tile (16-byte loads, zero past the cache)
-      const int page = kPaged ? p.tables[bi * p.max_blocks + tile] : 0;
       for (int idx = tid; idx < kb * vec; idx += kThreads) {
         const int j = idx / vec, c = idx - j * vec;
         uint4 kw = make_uint4(0, 0, 0, 0), vw = kw;
-        size_t off;
-        bool valid = true;
-        if (kPaged) {
-          off = ((size_t)(page * kb + j) * p.kv + kh) * dh;
-        } else {
-          const int pos = tile * kb + j;
-          valid = pos < p.s_max;
-          off = ((size_t)(bi * p.s_max + pos) * p.kv + kh) * dh;
-        }
+        const int pos = tile * kb + j;
+        const bool valid = pos < p.s_max;
+        const size_t off = ((size_t)(bi * p.s_max + pos) * p.kv + kh) * dh;
         if (valid) {
           kw = reinterpret_cast<const uint4*>(p.k + off)[c];
           vw = reinterpret_cast<const uint4*>(p.v + off)[c];
@@ -271,24 +283,303 @@ __global__ void __launch_bounds__(kThreads) attn_kernel(Params p) {
   }
 }
 
-template <bool kPaged>
-int launch(Params p, cudaStream_t stream) {
-  if (p.dh % 16 != 0 || p.dh > kMaxDh || p.k_block < 1 || p.k_block > kMaxKBlock ||
-      p.q_block < 1 || p.n < 1 || p.kv < 1 || p.h % p.kv != 0) {
-    return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// paged mode
+// ---------------------------------------------------------------------------
+
+constexpr int kChunk = 16;     // kv positions of one chunk: the depth of one m16n8k16
+constexpr int kSlots = 4;      // chunks of one pipeline step
+constexpr int kSteps = 3;      // steps in the ring: two in flight while one is computed
+constexpr int kTileRows = 64;  // resident query rows: four 16-row m-tiles
+
+// Shared memory of the paged kernel in bf16 elements: the query rows, then
+// (from offset `ring`) the ring of kSteps steps, each kSlots (K chunk, V
+// chunk) pairs.  Rows hold dh + 8 elements (`ld`): the 16-byte pad
+// staggers the banks for ldmatrix.
+struct PagedLayout {
+  int ld, chunk, step, ring, total;
+  __host__ __device__ explicit PagedLayout(int dh) {
+    ld = dh + 8;
+    chunk = kChunk * ld;
+    step = kSlots * 2 * chunk;
+    ring = kTileRows * ld;
+    total = ring + kSteps * step;
   }
+};
+
+// x, y -> bf16x2 hi and the bf16x2 of what hi leaves over
+__device__ inline void split_bf2(float x, float y, uint32_t* hi, uint32_t* lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 back = __bfloat1622float2(h);
+  *hi = *reinterpret_cast<const uint32_t*>(&h);
+  *lo = f2_to_bf2(x - back.x, y - back.y);
+}
+
+__global__ void __launch_bounds__(kThreads) paged_kernel(Params p) {
+  extern __shared__ __align__(16) uint8_t paged_smem[];
+  const int iq = blockIdx.x, kh = blockIdx.y, bi = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kb = p.k_block, dh = p.dh, vec = dh / 8, nk16 = dh / 16;
+  const PagedLayout L(dh);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(paged_smem);
+  const uint32_t q_base = smem_addr(q_s), ring_base = smem_addr(q_s + L.ring);
+
+  const int len = p.lens[bi];
+  const int q0 = iq * p.q_block;             // first query index of this q tile
+  const int nq = min(p.q_block, p.n - q0);   // valid query rows per head
+  const int rows = p.g * nq;                 // valid rows of the block
+
+  // the Pallas skip rule as loop bounds, then the executed positions in chunks
+  const int hi = len + min(p.n, q0 + p.q_block);
+  const int hi_tile = min(p.n_kv_tiles, (hi + kb - 1) / kb);
+  int lo_tile = 0;
+  if (p.window >= 0) {
+    const int lo_visible = len + q0 - p.window + 1;
+    lo_tile = lo_visible > 0 ? lo_visible / kb : 0;
+  }
+  if (p.tiles != nullptr && tid == 0) atomicAdd(p.tiles, max(0, hi_tile - lo_tile));
+  const int pos0 = lo_tile * kb, pos1 = hi_tile * kb;
+  const int chunks = pos1 > pos0 ? (pos1 - pos0 + kChunk - 1) / kChunk : 0;
+  const int steps = (chunks + kSlots - 1) / kSlots;
+  const int* table = p.tables + (size_t)bi * p.max_blocks;
+
+  // K and V of step s's chunks into ring stage s % kSteps; positions past
+  // the executed range are zero (and masked)
+  auto load_step = [&](int s) {
+    const uint32_t st = ring_base + 2u * (uint32_t)((s % kSteps) * L.step);
+    const int first = s * kSlots;
+    for (int idx = tid; idx < kSlots * kChunk * vec; idx += kThreads) {
+      const int r = idx / vec, c = idx - r * vec, slot = r / kChunk;
+      if (first + slot >= chunks) break;
+      const int pos = pos0 + first * kChunk + r;
+      const bool ok = pos < pos1;
+      size_t off = 0;
+      if (ok) {
+        const int page = __ldg(table + pos / kb);
+        off = ((size_t)page * kb + pos % kb) * p.kv * dh + (size_t)kh * dh + c * 8;
+      }
+      const uint32_t kd = st + 2u * (uint32_t)(2 * slot * L.chunk + (r % kChunk) * L.ld + c * 8);
+      cp_async16(kd, p.k + off, ok);
+      cp_async16(kd + 2u * L.chunk, p.v + off, ok);
+    }
+  };
+
+  for (int c0 = 0; c0 < rows; c0 += kTileRows) {
+    const int R = min(kTileRows, rows - c0);
+    const int mt = (R + 15) / 16;
+    // warp -> (m-tile, kv split): 1 m-tile: 4 splits; 2: 2; 3 or 4: 1
+    const int splits = mt == 1 ? 4 : (mt == 2 ? 2 : 1);
+    const int mi = warp / splits, si = warp - mi * splits;
+    const bool active = mi < mt;
+
+    for (int s = 0; s < kSteps - 1; ++s) {
+      if (s < steps) load_step(s);
+      cp_async_commit();
+    }
+    // ---- resident query rows (row = gi*nq + qi, the Pallas g*q_block fold),
+    // zero past R up to the m-tile
+    for (int idx = tid; idx < mt * 16 * vec; idx += kThreads) {
+      const int r = idx / vec, c = idx - r * vec;
+      uint4 w = make_uint4(0, 0, 0, 0);
+      if (r < R) {
+        const int row = c0 + r, gi = row / nq, qi = row - gi * nq;
+        const size_t off = ((size_t)(bi * p.n + q0 + qi) * p.h + kh * p.g + gi) * dh;
+        w = reinterpret_cast<const uint4*>(p.q + off)[c];
+      }
+      *reinterpret_cast<uint4*>(q_s + r * L.ld + c * 8) = w;
+    }
+    __syncthreads();
+
+    uint32_t qf[kMaxDh / 16][4];
+    float acc[kMaxDh / 8][4];
+    float m_run[2] = {kNegInf, kNegInf}, l_run[2] = {0.f, 0.f};
+    int q_pos[2];
+#pragma unroll
+    for (int t = 0; t < kMaxDh / 8; ++t) acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int row = c0 + mi * 16 + (lane >> 2) + hf * 8;
+      q_pos[hf] = len + q0 + row % nq;
+    }
+    if (active) {
+#pragma unroll
+      for (int kk = 0; kk < kMaxDh / 16; ++kk) {
+        if (kk < nk16)
+          ldsm_x4(qf[kk], q_base + 2u * (uint32_t)((mi * 16 + (lane & 15)) * L.ld + kk * 16 +
+                                                   (lane >> 4) * 8));
+      }
+    }
+
+    for (int s = 0; s < steps; ++s) {
+      cp_async_wait<kSteps - 2>();
+      __syncthreads();  // step s has landed; the stage refilled next is consumed
+      if (s + kSteps - 1 < steps) load_step(s + kSteps - 1);
+      cp_async_commit();
+      if (!active) continue;
+      const uint32_t st = ring_base + 2u * (uint32_t)((s % kSteps) * L.step);
+      for (int slot = 0; slot < kSlots; ++slot) {
+        const int ci = s * kSlots + slot;
+        if (ci >= chunks) break;
+        if (ci % splits != si) continue;
+        const uint32_t kt = st + 2u * (uint32_t)(2 * slot * L.chunk), vt = kt + 2u * L.chunk;
+        const int cpos = pos0 + ci * kChunk;
+
+        // ---- scores of 16 rows x 16 positions: Q·Kᵀ
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+#pragma unroll
+        for (int kk = 0; kk < kMaxDh / 16; ++kk) {
+          if (kk >= nk16) break;
+          uint32_t kf[4];
+          ldsm_x4(kf, kt + 2u * (uint32_t)(((lane & 7) + (lane >> 4) * 8) * L.ld + kk * 16 +
+                                           ((lane >> 3) & 1) * 8));
+          mma16816(sc[0], qf[kk], kf[0], kf[1]);
+          mma16816(sc[1], qf[kk], kf[2], kf[3]);
+        }
+        // ---- masked in logical positions, online softmax per row
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float mx = kNegInf;
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int kv_pos = cpos + t * 8 + (lane & 3) * 2 + e;
+              bool keep = kv_pos < pos1 && kv_pos <= q_pos[hf];
+              if (p.window >= 0) keep = keep && kv_pos > q_pos[hf] - p.window;
+              float& x = sc[t][hf * 2 + e];
+              x = keep ? x * p.scale : kNegInf;
+              mx = fmaxf(mx, x);
+            }
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m_run[hf], mx);
+          const float alpha = expf(m_run[hf] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int t = 0; t < 2; ++t)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              float& x = sc[t][hf * 2 + e];
+              x = expf(x - m_new);
+              sum += x;
+            }
+          m_run[hf] = m_new;
+          l_run[hf] = alpha * l_run[hf] + sum;  // this thread's columns; quad-summed at the end
+#pragma unroll
+          for (int t = 0; t < kMaxDh / 8; ++t) {
+            acc[t][hf * 2] *= alpha;
+            acc[t][hf * 2 + 1] *= alpha;
+          }
+        }
+        // ---- acc += P·V, P as bf16 hi + lo A fragments
+        uint32_t ph[4], pl[4];
+        split_bf2(sc[0][0], sc[0][1], &ph[0], &pl[0]);
+        split_bf2(sc[0][2], sc[0][3], &ph[1], &pl[1]);
+        split_bf2(sc[1][0], sc[1][1], &ph[2], &pl[2]);
+        split_bf2(sc[1][2], sc[1][3], &ph[3], &pl[3]);
+#pragma unroll
+        for (int j = 0; j < kMaxDh / 16; ++j) {
+          if (j >= nk16) break;
+          uint32_t vf[4];
+          ldsm_x4_trans(vf, vt + 2u * (uint32_t)(((lane & 7) + ((lane >> 3) & 1) * 8) * L.ld +
+                                                 j * 16 + (lane >> 4) * 8));
+          mma16816(acc[2 * j], ph, vf[0], vf[1]);
+          mma16816(acc[2 * j], pl, vf[0], vf[1]);
+          mma16816(acc[2 * j + 1], ph, vf[2], vf[3]);
+          mma16816(acc[2 * j + 1], pl, vf[2], vf[3]);
+        }
+      }
+    }
+
+    // ---- merge the splits of each m-tile in split order, normalize (empty
+    // row -> 0) and store bf16; the ring becomes the merge scratch
+    cp_async_wait<0>();
+    __syncthreads();
+    float* scr = reinterpret_cast<float*>(q_s + L.ring);
+    const int sld = dh + 4, wsz = 16 * sld + 32;  // per warp: acc rows, m, l
+    if (active) {
+      float* ws = scr + warp * wsz;
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float l = l_run[hf];
+        l += __shfl_xor_sync(0xffffffffu, l, 1);
+        l += __shfl_xor_sync(0xffffffffu, l, 2);
+        const int r = (lane >> 2) + hf * 8;
+        if ((lane & 3) == 0) {
+          ws[16 * sld + r] = m_run[hf];
+          ws[16 * sld + 16 + r] = l;
+        }
+#pragma unroll
+        for (int t = 0; t < kMaxDh / 8; ++t) {
+          if (t >= 2 * nk16) break;
+          const int col = t * 8 + (lane & 3) * 2;
+          ws[r * sld + col] = acc[t][hf * 2];
+          ws[r * sld + col + 1] = acc[t][hf * 2 + 1];
+        }
+      }
+    }
+    __syncthreads();
+    const int hw = dh / 2;
+    for (int idx = tid; idx < R * hw; idx += kThreads) {
+      const int r = idx / hw, w = idx - r * hw, rr = r & 15;
+      const float* first = scr + (r >> 4) * splits * wsz;
+      float m_all = kNegInf;
+      for (int k = 0; k < splits; ++k) m_all = fmaxf(m_all, first[k * wsz + 16 * sld + rr]);
+      float l = 0.f, ax = 0.f, ay = 0.f;
+      for (int k = 0; k < splits; ++k) {
+        const float* ws = first + k * wsz;
+        const float f = expf(ws[16 * sld + rr] - m_all);
+        l += f * ws[16 * sld + 16 + rr];
+        ax += f * ws[rr * sld + 2 * w];
+        ay += f * ws[rr * sld + 2 * w + 1];
+      }
+      l = (l == 0.f) ? 1.f : l;
+      const int row = c0 + r, gi = row / nq, qi = row - gi * nq;
+      const size_t off = ((size_t)(bi * p.n + q0 + qi) * p.h + kh * p.g + gi) * dh;
+      reinterpret_cast<uint32_t*>(p.o + off)[w] = f2_to_bf2(ax / l, ay / l);
+    }
+    __syncthreads();  // the scratch is the next row chunk's ring
+  }
+}
+
+int check(const Params& p) {
+  return (p.dh % 16 != 0 || p.dh > kMaxDh || p.k_block < 1 || p.k_block > kMaxKBlock ||
+          p.q_block < 1 || p.n < 1 || p.kv < 1 || p.h % p.kv != 0)
+             ? (int)cudaErrorInvalidValue
+             : 0;
+}
+
+// raise the kernel's dynamic shared-memory limit to `bytes` once it needs more
+template <typename K>
+int allow_smem(K kernel, size_t bytes, size_t* configured) {
+  if (bytes <= *configured) return 0;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  *configured = bytes;
+  return 0;
+}
+
+int launch_dense(Params p, cudaStream_t stream) {
+  if (const int e = check(p)) return e;
   p.g = p.h / p.kv;
   p.row_chunk = std::min(kRowChunk, p.g * std::min(p.q_block, p.n));
   const size_t smem = sizeof(uint32_t) * (size_t)Layout(p.row_chunk, p.k_block, p.dh).total;
   static size_t configured = 48 * 1024;
-  if (smem > configured) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        attn_kernel<kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured = smem;
-  }
+  if (const int e = allow_smem(dense_kernel, smem, &configured)) return e;
   const dim3 grid((p.n + p.q_block - 1) / p.q_block, p.kv, p.b);
-  attn_kernel<kPaged><<<grid, kThreads, smem, stream>>>(p);
+  dense_kernel<<<grid, kThreads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+int launch_paged(Params p, cudaStream_t stream) {
+  if (const int e = check(p)) return e;
+  p.g = p.h / p.kv;
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)PagedLayout(p.dh).total;
+  static size_t configured = 48 * 1024;
+  if (const int e = allow_smem(paged_kernel, smem, &configured)) return e;
+  const dim3 grid((p.n + p.q_block - 1) / p.q_block, p.kv, p.b);
+  paged_kernel<<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -310,7 +601,7 @@ extern "C" int decode_attention_dense(const void* q, const void* k, const void* 
   p.q_block = q_block; p.k_block = k_block;
   p.n_kv_tiles = (s_max + k_block - 1) / k_block;
   p.s_max = s_max; p.max_blocks = 0; p.window = window; p.scale = scale;
-  return launch<false>(p, static_cast<cudaStream_t>(stream));
+  return launch_dense(p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int decode_attention_paged(const void* q, const void* k_pool, const void* v_pool,
@@ -330,5 +621,5 @@ extern "C" int decode_attention_paged(const void* q, const void* k_pool, const v
   p.q_block = q_block; p.k_block = block_size;
   p.n_kv_tiles = max_blocks;
   p.s_max = 0; p.max_blocks = max_blocks; p.window = window; p.scale = scale;
-  return launch<true>(p, static_cast<cudaStream_t>(stream));
+  return launch_paged(p, static_cast<cudaStream_t>(stream));
 }

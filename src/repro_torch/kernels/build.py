@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface (no PyTorch headers, so a build
-takes seconds) and loaded with ``ctypes``.  Libraries go to ``build/`` at
-the repository root, named by a hash of source and flags, and are built
-at first use — nothing is compiled when a module is imported.
+Each ``csrc/<name>.cu`` (with the shared ``csrc/*.cuh`` headers) is
+compiled by ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds) and loaded with
+``ctypes``.  Libraries go to ``build/`` at the repository root, named by a
+hash of sources and flags, and are built at first use — nothing is
+compiled when a module is imported.
 """
 from __future__ import annotations
 
@@ -33,7 +34,9 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    # the shared headers are part of every source
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu",
+                                            *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

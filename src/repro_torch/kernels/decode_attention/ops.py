@@ -18,6 +18,11 @@ logically: rows past ``n`` are skipped, so no padded copy of q exists.
 ``slack_report`` models one forward's physical work in numpy (useful vs
 padded query rows, executed vs grid kv tiles under the kernel's per-row
 skip rule); the kernel executes exactly its ``kv_tiles_executed``.
+
+``decode_attention_paged_split`` emulates the paged kernel's split of the
+kv range inside a block (per-split running max, sum and accumulator over
+the same chunk partition, merged in the kernel's order); the tests hold it
+against the reference's paged Pallas kernel.  It is on no serving path.
 """
 from __future__ import annotations
 
@@ -32,6 +37,9 @@ from repro_torch.kernels.build import load_library
 
 K_BLOCK = 128
 NEG_INF = -1e30
+# the paged kernel's partition: 16-position chunks, 64 resident query rows
+KV_CHUNK = 16
+TILE_ROWS = 64
 
 Tensor = torch.Tensor
 Lens = Union[int, Tensor]
@@ -113,6 +121,87 @@ def decode_attention_paged_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     return decode_attention_ref(q, paged_gather(k_pool, block_tables),
                                 paged_gather(v_pool, block_tables),
                                 cache_lens, window=window)
+
+
+def kv_splits(rows: int) -> int:
+    """Splits of the kv range in the paged kernel for ``rows`` (<= 64)
+    resident query rows: four warps over 16-row m-tiles, so 4 for one
+    m-tile, 2 for two, 1 for three or four."""
+    return {1: 4, 2: 2}.get(cdiv(rows, 16), 1)
+
+
+def decode_attention_paged_split(q: Tensor, k_pool: Tensor, v_pool: Tensor,
+                                 cache_lens: Lens, block_tables: Tensor, *,
+                                 window: Optional[int] = None) -> Tensor:
+    """The paged kernel's arithmetic in float32: per (row, q tile, kv
+    head) and chunk of at most ``TILE_ROWS`` query rows, the executed
+    positions (the skip rule's tiles) in ``KV_CHUNK``-position chunks,
+    chunk i to split ``i % kv_splits(rows)``; each split runs its own
+    online softmax (scores masked to ``NEG_INF``) over its chunks in
+    order, and the splits merge in split order; an empty row gives 0.
+    Same arguments and result as ``decode_attention_paged``."""
+    b, n, h, dh = q.shape
+    bs, kv = k_pool.shape[1], k_pool.shape[2]
+    g, max_blocks = h // kv, block_tables.shape[1]
+    qb = select_q_block(n, dh)
+    scale = 1.0 / (dh ** 0.5)
+    lens = row_lens(cache_lens, b, q.device).tolist()
+    k_virt = paged_gather(k_pool, block_tables).float()
+    v_virt = paged_gather(v_pool, block_tables).float()
+    out = torch.zeros((b, n, h, dh), dtype=torch.float32, device=q.device)
+    for bi, ln in enumerate(lens):
+        for q0 in range(0, n, qb):
+            nq = min(qb, n - q0)
+            hi_tile = min(max_blocks, cdiv(ln + min(n, q0 + qb), bs))
+            lo_tile = (0 if window is None
+                       else max(0, (ln + q0 - window + 1) // bs))
+            pos0, pos1 = lo_tile * bs, hi_tile * bs
+            chunks = cdiv(pos1 - pos0, KV_CHUNK) if pos1 > pos0 else 0
+            # (kv, g*nq, dh), row = gi*nq + qi (the Pallas g*q_block fold)
+            qt = q[bi, q0:q0 + nq].float().reshape(nq, kv, g, dh).permute(
+                1, 2, 0, 3).reshape(kv, g * nq, dh)
+            q_pos = ln + q0 + torch.arange(g * nq, device=q.device) % nq
+            for c0 in range(0, g * nq, TILE_ROWS):
+                qc, qp = qt[:, c0:c0 + TILE_ROWS], q_pos[c0:c0 + TILE_ROWS]
+                splits, parts = kv_splits(qc.shape[1]), []
+                for si in range(splits):
+                    m = torch.full(qc.shape[:2], NEG_INF, device=q.device)
+                    l = torch.zeros_like(m)
+                    acc = torch.zeros_like(qc)
+                    for ci in range(si, chunks, splits):
+                        pos = pos0 + ci * KV_CHUNK + torch.arange(
+                            KV_CHUNK, device=q.device)
+                        idx = pos.clamp(max=pos1 - 1)
+                        sc = torch.einsum("krd,pkd->krp", qc,
+                                          k_virt[bi, idx]) * scale
+                        keep = (pos < pos1)[None, :] & (pos[None, :]
+                                                        <= qp[:, None])
+                        if window is not None:
+                            keep &= pos[None, :] > qp[:, None] - window
+                        sc = torch.where(keep[None], sc, NEG_INF)
+                        m_new = torch.maximum(m, sc.amax(-1))
+                        alpha = torch.exp(m - m_new)
+                        pr = torch.exp(sc - m_new[..., None])
+                        l = alpha * l + pr.sum(-1)
+                        acc = alpha[..., None] * acc + torch.einsum(
+                            "krp,pkd->krd", pr, v_virt[bi, idx])
+                        m = m_new
+                    parts.append((m, l, acc))
+                m_all = torch.stack([pm for pm, _, _ in parts]).amax(0)
+                l_all = torch.zeros_like(m_all)
+                a_all = torch.zeros_like(qc)
+                for pm, pl, pa in parts:               # in split order
+                    f = torch.exp(pm - m_all)
+                    l_all = l_all + f * pl
+                    a_all = a_all + f[..., None] * pa
+                l_all = torch.where(l_all == 0, 1.0, l_all)
+                o = a_all / l_all[..., None]           # (kv, rows, dh)
+                rows = torch.arange(c0, c0 + qc.shape[1], device=q.device)
+                gi, qi = rows // nq, rows % nq
+                heads = (torch.arange(kv, device=q.device)[:, None] * g
+                         + gi[None, :])
+                out[bi, q0 + qi[None, :].expand_as(heads), heads] = o
+    return out.to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,8 @@ bounds it) or raises; only a tensor on the CPU takes the plain version
 ``grouped_ffn_ref``, which runs on the same padded layout and block
 metadata.  Both keep ``h = act(x·Wg)∘(x·Wu)`` in float32 between the
 projections, as the reference's Pallas kernel does (its XLA path rounds
-``h`` to the activation type instead).
+``h`` to the activation type instead): the kernel carries it into its
+bf16 tensor-core down projection as the two bf16 planes of ``split_h``.
 """
 from __future__ import annotations
 
@@ -120,6 +121,16 @@ def grouped_ffn_ref(x_padded: Tensor, w_gate: Optional[Tensor], w_up: Tensor,
     return out.reshape(m_pad, d).to(x_padded.dtype)
 
 
+def split_h(h: Tensor) -> Tuple[Tensor, Tensor]:
+    """The kernel's phase-B operands: ``hi = bf16(h)``, ``lo = bf16(h -
+    hi)``, so that ``hi + lo`` is ``h`` to 2^-16 relative and ``hi·Wd +
+    lo·Wd`` (two bf16 tensor-core products, f32 accumulation) is the f32
+    ``h·Wd`` to that accuracy.  Used by the tests; the kernel splits in its
+    phase-A epilogue."""
+    hi = h.to(torch.bfloat16)
+    return hi, (h - hi.float()).to(torch.bfloat16)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -184,7 +195,9 @@ def grouped_ffn_padded(x_padded: Tensor, w_gate: Optional[Tensor],
            token_block)
     m_pad, d = x_padded.shape
     f = w_up.shape[-1]
-    h = torch.empty((m_pad, f), dtype=torch.float32, device=x_padded.device)
+    # h between the launches: the bf16 hi and lo planes of split_h
+    h = torch.empty((2, m_pad, f), dtype=torch.bfloat16,
+                    device=x_padded.device)
     out = torch.empty_like(x_padded)
     err = _kernels().moe_ffn(
         x_padded.data_ptr(), None if w_gate is None else w_gate.data_ptr(),

@@ -1,5 +1,6 @@
 """The Hopper kernels (decode attention, the fused grouped MoE FFN, the
-Mamba1 selective scan) against their plain versions on the card.  Needs an NVIDIA GPU (marker ``gpu``;
+Mamba1 selective scan) against their plain versions on the card (the paged
+attention kernel also against its split-KV emulation).  Needs an NVIDIA GPU (marker ``gpu``;
 skipped elsewhere) and imports no JAX, so it runs on the machine with the
 card:
 
@@ -98,6 +99,81 @@ def test_paged_kernel_matches_plain(ops, n):
     assert int(tiles.item()) == kv * want["kv_tiles_executed"]
 
 
+def _paged_pool(g, lens, n, h, kv, dh, max_blocks, seed, bs=16):
+    """q and a fragmented pool of ``bs``-position pages covering each
+    row's lens + n positions, unassigned table entries on a trash page of
+    junk."""
+    b = len(lens)
+    n_phys = b * max_blocks + 1
+    pages = np.random.default_rng(seed).permutation(n_phys - 1)
+    tables = np.full((b, max_blocks), n_phys - 1, np.int32)
+    for i, ln in enumerate(lens):
+        need = -(-(ln + n) // bs)
+        tables[i, :need] = pages[i * max_blocks:i * max_blocks + need]
+    k, v = _bf16(g, n_phys, bs, kv, dh), _bf16(g, n_phys, bs, kv, dh)
+    k[-1] = 100.0
+    v[-1] = 100.0
+    return (_bf16(g, b, n, h, dh), k, v,
+            torch.tensor(lens, dtype=torch.int32, device="cuda"),
+            torch.as_tensor(tables, device="cuda"))
+
+
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("n", [1, 16, 17])
+@pytest.mark.parametrize("heads", [(32, 32, 80), (32, 8, 128)],
+                         ids=["stablelm", "wedlm"])
+def test_paged_kernel_pipeline(ops, heads, n, window):
+    """The paged kernel's chunk ring and kv split: lengths 0, 1, 15, 16,
+    17 and 255 in a 32-page table (rows longer than the ring's 12 chunks
+    in flight), one m-tile (n = 1, 16) and two (n = 17; GQA g = 4: a
+    64-row chunk and a 4-row one), against the plain version and its
+    split emulation; executed tiles counted."""
+    h, kv, dh = heads
+    g = torch.Generator(device="cuda").manual_seed(n)
+    lens = [0, 1, 15, 16, 17, 255]
+    q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, 32, n)
+    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    before = ops.decode_attention_paged.launches
+    out = ops.decode_attention_paged(q, k, v, lens_t, tables, window=window,
+                                     tiles=tiles)
+    assert ops.decode_attention_paged.launches == before + 1
+    torch.testing.assert_close(
+        out, ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
+                                            window=window), **TOL)
+    torch.testing.assert_close(
+        out, ops.decode_attention_paged_split(q, k, v, lens_t, tables,
+                                              window=window), **TOL)
+    want = ops.slack_report(n, lens, 512, head_dim=dh, k_block=16,
+                            window=window)
+    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+
+
+@pytest.mark.parametrize("n", [1, 17])
+@pytest.mark.parametrize("bs", [8, 24, 128])
+@pytest.mark.parametrize("heads", [(32, 32, 80), (12, 4, 96)],
+                         ids=["stablelm", "dh96"])
+def test_paged_kernel_page_sizes(ops, heads, bs, n):
+    """Pages of other sizes than a 16-position chunk (a chunk then spans
+    two pages, or a page several chunks) and a head dim of 96."""
+    h, kv, dh = heads
+    g = torch.Generator(device="cuda").manual_seed(bs + n)
+    lens = [0, 7, 40, 200]
+    max_blocks = -(-(max(lens) + n) // bs)
+    q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, max_blocks,
+                                          bs, bs=bs)
+    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for window in (None, 48):
+        tiles.zero_()
+        out = ops.decode_attention_paged(q, k, v, lens_t, tables,
+                                         window=window, tiles=tiles)
+        torch.testing.assert_close(
+            out, ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
+                                                window=window), **TOL)
+        want = ops.slack_report(n, lens, max_blocks * bs, head_dim=dh,
+                                k_block=bs, window=window)
+        assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+
+
 def test_kernel_rejects_what_it_does_not_take(ops):
     q = torch.zeros((1, 1, 4, 24), dtype=torch.bfloat16, device="cuda")
     k = torch.zeros((1, 32, 4, 24), dtype=torch.bfloat16, device="cuda")
@@ -158,6 +234,53 @@ def test_moe_kernel_matches_plain(moe_ops, t, gated):
                                   be, bv, token_block=tb, activation=act)
     torch.testing.assert_close(out[slot], ref[slot], **MOE_TOL)
     assert int(blocks.item()) == sum(-(-int(c) // tb) for c in gs.tolist())
+
+
+@pytest.mark.parametrize("case", ["swiglu f=1024", "one expert"])
+@pytest.mark.parametrize("t", [4, 41])
+def test_moe_kernel_wide_and_concentrated(moe_ops, case, t):
+    """Two f-column tiles of the gated kernel (f 1024), and every row on
+    one expert (T·k rows in ceil(T·k / tb) blocks of expert 0)."""
+    e, k, d = 40, 8, 1536
+    f = 1024 if case == "swiglu f=1024" else 512
+    g = torch.Generator(device="cuda").manual_seed(t + f)
+    w = _moe_weights(g, e, d, f)
+    idx = (torch.zeros((t, k), dtype=torch.long, device="cuda")
+           if case == "one expert"
+           else torch.rand((t, e), generator=g, device="cuda").topk(k).indices)
+    tb = 16 if t <= e else 64
+    order, slot, be, bv, m_pad, gs = _moe_layout(moe_ops, idx, e, tb)
+    x_pad = torch.zeros((m_pad, d), dtype=torch.bfloat16, device="cuda")
+    x_pad[slot] = torch.randn((t * k, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    blocks = torch.zeros(1, dtype=torch.int32, device="cuda")
+    args = (x_pad, w["w_gate"], w["w_up"], w["w_down"], be, bv)
+    out = moe_ops.grouped_ffn_padded(*args, token_block=tb,
+                                     activation="swiglu", blocks=blocks)
+    ref = moe_ops.grouped_ffn_ref(*args, token_block=tb, activation="swiglu")
+    torch.testing.assert_close(out[slot], ref[slot], **MOE_TOL)
+    assert int(blocks.item()) == sum(-(-int(c) // tb) for c in gs.tolist())
+
+
+@pytest.mark.parametrize("gated", [True, False], ids=["swiglu", "gelu"])
+@pytest.mark.parametrize("t", [3, 9])
+def test_moe_kernel_ragged_widths(moe_ops, t, gated):
+    """d and f that are no multiple of the kernel's 64-wide steps and
+    column slices (d 200, f 264): zero-filled tails in both phases."""
+    e, k, d, f = 8, 2, 200, 264
+    g = torch.Generator(device="cuda").manual_seed(t)
+    w = _moe_weights(g, e, d, f, gated)
+    idx = torch.rand((t, e), generator=g, device="cuda").topk(k).indices
+    tb = 16 if t <= e else 64
+    order, slot, be, bv, m_pad, gs = _moe_layout(moe_ops, idx, e, tb)
+    x_pad = torch.zeros((m_pad, d), dtype=torch.bfloat16, device="cuda")
+    x_pad[slot] = torch.randn((t * k, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    act = "swiglu" if gated else "gelu"
+    args = (x_pad, w["w_gate"], w["w_up"], w["w_down"], be, bv)
+    out = moe_ops.grouped_ffn_padded(*args, token_block=tb, activation=act)
+    ref = moe_ops.grouped_ffn_ref(*args, token_block=tb, activation=act)
+    torch.testing.assert_close(out[slot], ref[slot], **MOE_TOL)
 
 
 def test_moe_kernel_rows_are_invariant(moe_ops):

@@ -130,3 +130,85 @@ def test_wrapper_rejects_unknown_device_types():
     q = torch.zeros((1, 1, 4, 16), device="meta")
     with pytest.raises(ValueError, match="no decode-attention path"):
         ops.decode_attention_ragged(q, q, q, 0)
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's split of the kv range (emulated in float32)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("n", [1, 16])
+@pytest.mark.parametrize("layout", ["identity", "fragmented"],
+                         ids=["contiguous", "fragmented"])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_paged_split_emulation_matches_reference(heads, layout, n, window):
+    """The paged kernel's per-split online softmax over 16-position chunks,
+    merged in split order, against the reference's paged Pallas kernel in
+    interpret mode.  Rows: an empty one (length 0), lengths inside a page
+    and at its edges (1, 15, 16, 17) and a full row; with GQA, n = 16
+    gives 64 resident rows (one split per warp) and n = 1 four rows (four
+    splits).  float32 inputs: both sides accumulate in f32 and differ by
+    the order of the softmax sums (2e-5, as above)."""
+    h, kv = heads
+    rng = np.random.default_rng(7 + n)
+    b, dh, bs, s = 6, 16, 16, 128
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 1, 15, 16, 17, s - n], np.int32)
+    k_pool, v_pool, tables = _pool(rng, k, v, lens, n, bs, layout)
+    want = ref_ops.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(lens), jnp.asarray(tables), window=window)
+    got = ops.decode_attention_paged_split(
+        torch.as_tensor(q), torch.as_tensor(k_pool), torch.as_tensor(v_pool),
+        torch.as_tensor(lens), torch.as_tensor(tables), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("n", [1, 17, 65])
+def test_paged_split_emulation_long_rows(n):
+    """Rows of up to 16 pages (more chunks than the kernel's ring of
+    three 4-chunk steps holds), n = 17 (two m-tiles: two splits) and
+    n = 65 (two q tiles, GQA: a 64-row chunk, then 4 rows) against the
+    plain version."""
+    rng = np.random.default_rng(n)
+    b, h, kv, dh, bs, s = 3, 8, 2, 16, 16, 256
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 100, s - n], np.int32)
+    k_pool, v_pool, tables = (torch.as_tensor(a) for a in
+                              _pool(rng, k, v, lens, n, bs, "fragmented"))
+    q, lens = torch.as_tensor(q), torch.as_tensor(lens)
+    for window in (None, 40):
+        got = ops.decode_attention_paged_split(q, k_pool, v_pool, lens,
+                                               tables, window=window)
+        want = ops.decode_attention_paged_ref(q, k_pool, v_pool, lens,
+                                              tables, window=window)
+        torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("bs", [8, 32])
+def test_paged_split_emulation_page_sizes(bs):
+    """Pages of 8 positions (a 16-position chunk spans two) and of 32 (a
+    page spans two chunks), with a window, against the reference's paged
+    Pallas kernel."""
+    rng = np.random.default_rng(bs)
+    b, n, h, kv, dh, s = 4, 3, 8, 2, 16, 96
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 9, 40, s - n], np.int32)
+    k_pool, v_pool, tables = _pool(rng, k, v, lens, n, bs, "fragmented")
+    for window in (None, 20):
+        want = ref_ops.decode_attention_paged(
+            jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+            jnp.asarray(lens), jnp.asarray(tables), window=window)
+        got = ops.decode_attention_paged_split(
+            torch.as_tensor(q), torch.as_tensor(k_pool),
+            torch.as_tensor(v_pool), torch.as_tensor(lens),
+            torch.as_tensor(tables), window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("rows,splits", [(1, 4), (16, 4), (17, 2), (32, 2),
+                                         (33, 1), (64, 1)])
+def test_kv_splits_follow_the_warp_layout(rows, splits):
+    assert ops.kv_splits(rows) == splits

@@ -135,6 +135,71 @@ def test_padded_plain_version_matches_pallas_kernel(tb):
     _close(got, want)
 
 
+# ---------------------------------------------------------------------------
+# the kernel's phase B: h as two bf16 planes through bf16 products
+# ---------------------------------------------------------------------------
+
+def _bf16_valued(rng, shape, scale=1.0):
+    """float32 numpy values that bf16 represents exactly, as the kernel's
+    bf16 x and weights."""
+    a = torch.as_tensor((rng.standard_normal(shape) * scale).astype(
+        np.float32))
+    return a.to(torch.bfloat16).float().numpy()
+
+
+def _granite_phase_a(tb):
+    """x and weights at granite widths (d 1536, f 512; 4 of its 40
+    experts), padded by ``align_block_size``, and the f32 h of every
+    padded row under its block's expert."""
+    d, f, e = 1536, 512, 4
+    rng = np.random.default_rng(tb)
+    gs = np.array([5, 0, 17, 3], np.int32)
+    w = {name: _bf16_valued(rng, shape, shape[1] ** -0.5)
+         for name, shape in (("w_gate", (e, d, f)), ("w_up", (e, d, f)),
+                             ("w_down", (e, f, d)))}
+    expert_of = np.repeat(np.arange(e, dtype=np.int32), gs)
+    slot, be, bv, m_pad = ops.align_block_size(_t(expert_of), _t(gs), e, tb)
+    x_pad = np.zeros((m_pad, d), np.float32)
+    x_pad[slot.numpy()] = _bf16_valued(rng, (int(gs.sum()), d))
+    xb = torch.as_tensor(x_pad).reshape(-1, tb, d)
+    experts = be.long()
+    h = (torch.nn.functional.silu(torch.bmm(xb, _t(w["w_gate"])[experts]))
+         * torch.bmm(xb, _t(w["w_up"])[experts]))
+    return x_pad, w, be, bv, experts, h
+
+
+def test_split_h_reconstructs_h():
+    """hi + lo is h to 2^-16 relative: two roundings to bf16's 8
+    significant bits."""
+    h = _granite_phase_a(16)[-1]
+    hi, lo = ops.split_h(h)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    err = (hi.float() + lo.float() - h).abs()
+    assert bool((err <= 2.0 ** -16 * h.abs()).all())
+    assert float(err.max()) > 0          # lo carries what hi rounds off
+
+
+@pytest.mark.parametrize("tb", [16, 64])
+def test_split_down_projection_matches_pallas_kernel(tb):
+    """The kernel's phase B, hi·Wd + lo·Wd with bf16 operands and f32
+    sums, against the reference ``moe_ffn_pallas`` in interpret mode (f32
+    h·Wd) on the same padded blocks, at granite widths.  The split leaves
+    <= 2^-16 |h| per element, f32 summation order ~1e-6 relative: within
+    1e-4 at outputs of magnitude ~1."""
+    x_pad, w, be, bv, experts, h = _granite_phase_a(tb)
+    hi, lo = ops.split_h(h)
+    wd = _t(w["w_down"])[experts]
+    got = (torch.bmm(hi.float(), wd) + torch.bmm(lo.float(), wd)).reshape(
+        x_pad.shape)
+    got = torch.where(bv.bool().repeat_interleave(tb)[:, None], got, 0.0)
+    want = moe_ffn_pallas(jnp.asarray(x_pad), *(jnp.asarray(w[k]) for k in
+                                                ("w_gate", "w_up", "w_down")),
+                          jnp.asarray(be.numpy()), jnp.asarray(bv.numpy()),
+                          token_block=tb, f_tile=512, activation="swiglu",
+                          interpret=True)
+    _close(got, want)
+
+
 def test_token_block_keys_on_token_count():
     """T <= E picks the 16-row block, T > E the 64-row one (the tau
     branch), whatever M = T*k is: the same rows through either block
