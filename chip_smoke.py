@@ -8,47 +8,54 @@ Phases, in order; any failure exits non-zero:
   2. build    — compile csrc/decode_attention.cu, csrc/moe_ffn.cu and
                 csrc/mamba_scan.cu with nvcc (sm_90a), one process per
                 source, started together.
-  3. kernels  — both decode-attention kernels (dense slots, paged pool)
-                against their plain PyTorch version at stablelm_3b
+  3. kernels  — decode attention in both addressing modes (dense slots,
+                paged pool) against its plain PyTorch version at stablelm_3b
                 (h = kv = 32, dh = 80), wedlm8b_like (h = 32, kv = 8,
                 dh = 128) and granite_moe_3b_a800m (h = 24, kv = 8, dh = 64)
                 shapes: n in {1, 4, 16, 65}, ragged lengths with an empty
                 and a full row, fragmented and reversed block tables, with
                 and without a window; then the paged kernel's pipeline:
                 lengths 0, 1, 15, 16, 17 and 255 in a 32-page table (more
-                pages than its ring holds), n in {1, 16, 17}; the executed
-                kv tiles must equal slack_report's.  The fused grouped MoE
-                FFN against its plain version at granite shapes (E 40,
-                top-8, d 1536, f 512, swiglu) for T in {1, 4, 16, 40, 41,
-                256} under balanced, skewed and router routing, every row
-                on one expert (T = 16, 41), f 1024 swiglu and gelu (T = 4 /
-                16, 41) and llada_mini shapes (E 256, d 2048) at T = 4;
+                pages than its ring holds), n in {1, 16, 17}; then the
+                dense mode at a 200-position cache (its second 128-position
+                tile runs past the cache), lengths 0, 1, 127, 128, 129 and
+                full, n in {1, 16, 65}; the executed kv tiles must equal
+                slack_report's.  The fused grouped MoE FFN against its
+                plain version at granite shapes (E 40, top-8, d 1536, f
+                512, swiglu) for T in {1, 4, 16, 40, 41, 256} under
+                balanced, skewed and router routing, every row on one
+                expert (T = 16, 41), f 1024 swiglu and gelu (T = 4 / 16,
+                41) and llada_mini shapes (E 256, d 2048) at T = 4;
                 executed blocks must equal sum ceil(g_e / token_block), and
                 a row must give bitwise the same output at T = 1 and T = 41
                 (junk in the padding rows).
                 The Mamba1 selective scan against its plain version at
                 falcon_mamba_7b widths (di 8192, ds 16) for b in {1, 4}
-                and s in {1, 5, 16, 17, 48, 200} with a nonzero h0: y and
-                the final state, and the state after the s real positions
-                bitwise the same under two paddings.  Then times each
-                kernel (decode attention at n = 1 and 16), its plain
-                version and a library call (scaled_dot_product_attention;
-                torch._grouped_mm; none computes a selective scan), never
-                called by the port, the launch floor (a one-element add_
-                under the same timing), and prints the MoE kernel's M_moe /
-                tau staircase over T and the scan's M_ssm staircase over n.
+                and s in {1, 5, 16, 17, 48, 200}, and at di 256 for ds in
+                {1, 5, 8, 64} (lane groups rounded up past ds), with a
+                nonzero h0: y and the final state, and the state after the
+                s real positions bitwise the same under two paddings.  Then
+                times each kernel (decode attention at n = 1 and 16), its
+                plain version and a library call
+                (scaled_dot_product_attention; torch._grouped_mm; none
+                computes a selective scan), never called by the port, the
+                launch floor (a one-element add_ under the same timing),
+                and prints the MoE kernel's M_moe / tau staircase over T
+                and the scan's M_ssm staircase over n.
   4. serving  — full-size stablelm_3b, then full-size granite_moe_3b_a800m,
                 then full-size falcon_mamba_7b, each with seeded random
                 bf16 weights, 4 slots, max_len 256,
                 8 requests of 48-token prompts (two share their first 32
                 tokens) x 32 new tokens: paged greedy, paged speculative,
-                dense greedy.  Checks completion, the launch counts (32
-                layers x decode-shape forwards for decode attention; 32 x
-                all forwards, prefill included, for the MoE FFN, whose 16-
-                and 64-row token blocks must both run), and that the paged
-                speculative and the dense greedy streams equal the paged
-                greedy ones up to bf16 near-ties (granite: printing whether
-                the routing differed where a stream leaves).  Then one
+                dense greedy, and for stablelm_3b dense speculative (verify
+                forwards of width 16 through the dense attention mode).
+                Checks completion, the launch counts (32 layers x
+                decode-shape forwards for decode attention; 32 x all
+                forwards, prefill included, for the MoE FFN, whose 16- and
+                64-row token blocks must both run), and that the other
+                runs' streams equal the paged greedy ones up to bf16
+                near-ties (granite: printing whether the routing differed
+                where a stream leaves).  Then one
                 full-size forward per model through the kernels against the
                 same forward through the plain versions, and a
                 torch.profiler view of 4 decode steps (device busy share,
@@ -67,6 +74,7 @@ Phases, in order; any failure exits non-zero:
 """
 from __future__ import annotations
 
+import functools
 import json
 import statistics
 import subprocess
@@ -222,85 +230,68 @@ def check_kernels(ops) -> dict:
               "granite_moe_3b_a800m": (24, 8, 64)}
     err = {"dense": 0.0, "paged": 0.0}
     cases = 0
-    for shape, (h, kv, dh) in shapes.items():
+
+    def run(paged, n, h, kv, dh, lens, window, layout="", max_len=MAX_LEN):
+        """One case against the plain version; the executed kv tiles
+        against slack_report."""
+        nonlocal cases
+        q, k, v, lens_t, bt = kernel_inputs(
+            paged=paged, n=n, h=h, kv=kv, dh=dh, lens=lens, layout=layout,
+            seed=cases, max_len=max_len)
+        tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+        if paged:
+            out = ops.decode_attention_paged(q, k, v, lens_t, bt,
+                                             window=window, tiles=tiles)
+            ref = ops.decode_attention_paged_ref(q, k, v, lens_t, bt,
+                                                 window=window)
+        else:
+            out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
+                                              tiles=tiles)
+            ref = ops.decode_attention_ref(q, k, v, lens_t, window=window)
+        rep = ops.slack_report(n, lens, max_len, head_dim=dh,
+                               k_block=16 if paged else ops.K_BLOCK,
+                               window=window)
+        torch.cuda.synchronize()
+        mode = "paged" if paged else "dense"
+        e = (out.float() - ref.float()).abs()
+        bad = e > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
+        err[mode] = max(err[mode], float(e.max()))
+        where = (f"{mode} h={h} kv={kv} dh={dh} n={n} window={window} "
+                 f"{layout} lens={lens} s_max={max_len}")
+        if not torch.isfinite(out).all() or bad.any():
+            raise AssertionError(f"kernel disagrees with its plain version: "
+                                 f"{where}: max abs err {float(e.max()):.4g}")
+        want = kv * rep["kv_tiles_executed"]
+        if int(tiles.item()) != want:
+            raise AssertionError(f"{where}: kernel ran {int(tiles.item())} kv "
+                                 f"tiles, slack_report says {want}")
+        cases += 1
+
+    for h, kv, dh in shapes.values():
         for paged in (False, True):
             for n in (1, 4, 16, 65):
-                lens = [0, 37, 150, MAX_LEN - n]
                 for window in (None, 48):
                     for layout in (("fragmented", "reversed") if paged
                                    else ("",)):
-                        q, k, v, lens_t, bt = kernel_inputs(
-                            paged=paged, n=n, h=h, kv=kv, dh=dh,
-                            lens=lens, layout=layout, seed=cases)
-                        tiles = torch.zeros(1, dtype=torch.int32,
-                                            device="cuda")
-                        if paged:
-                            out = ops.decode_attention_paged(
-                                q, k, v, lens_t, bt, window=window,
-                                tiles=tiles)
-                            ref = ops.decode_attention_paged_ref(
-                                q, k, v, lens_t, bt, window=window)
-                            rep = ops.slack_report(n, lens, MAX_LEN,
-                                                   head_dim=dh, k_block=16,
-                                                   window=window)
-                        else:
-                            out = ops.decode_attention_ragged(
-                                q, k, v, lens_t, window=window, tiles=tiles)
-                            ref = ops.decode_attention_ref(
-                                q, k, v, lens_t, window=window)
-                            rep = ops.slack_report(n, lens, MAX_LEN,
-                                                   head_dim=dh,
-                                                   window=window)
-                        torch.cuda.synchronize()
-                        mode = "paged" if paged else "dense"
-                        e = (out.float() - ref.float()).abs()
-                        bad = e > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
-                        err[mode] = max(err[mode], float(e.max()))
-                        where = (f"{mode} {shape} n={n} window={window} "
-                                 f"{layout}")
-                        if not torch.isfinite(out).all() or bad.any():
-                            raise AssertionError(
-                                f"kernel disagrees with its plain version: "
-                                f"{where}: max abs err {float(e.max()):.4g}")
-                        want = kv * rep["kv_tiles_executed"]
-                        if int(tiles.item()) != want:
-                            raise AssertionError(
-                                f"{where}: kernel ran {int(tiles.item())} kv "
-                                f"tiles, slack_report says {want}")
-                        cases += 1
-    # the paged kernel's pipeline: rows of up to 17 pages in a 32-page
-    # table (more than the ring's 12 chunks in flight), lengths at page
-    # edges, an empty row, n of 1, 16 (one m-tile) and 17 (two m-tiles;
-    # with GQA g = 4, 68 rows: a 64-row chunk and a 4-row one)
-    lens = [0, 1, 15, 16, 17, 255]
-    for shape, (h, kv, dh) in shapes.items():
+                        run(paged, n, h, kv, dh, [0, 37, 150, MAX_LEN - n],
+                            window, layout)
+    # the ring and the kv split: rows of up to 17 pages in a 32-page table
+    # (more than the ring's 12 chunks in flight), lengths at page edges, an
+    # empty row, n of 1, 16 (one m-tile) and 17 (two m-tiles; with GQA
+    # g = 4, 68 rows: a 64-row chunk and a 4-row one)
+    for h, kv, dh in shapes.values():
         for n in (1, 16, 17):
             for window in (None, 48):
-                q, k, v, lens_t, bt = kernel_inputs(
-                    paged=True, n=n, h=h, kv=kv, dh=dh, lens=lens,
-                    layout="fragmented", seed=cases, max_len=2 * MAX_LEN)
-                tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
-                out = ops.decode_attention_paged(q, k, v, lens_t, bt,
-                                                 window=window, tiles=tiles)
-                ref = ops.decode_attention_paged_ref(q, k, v, lens_t, bt,
-                                                     window=window)
-                rep = ops.slack_report(n, lens, 2 * MAX_LEN, head_dim=dh,
-                                       k_block=16, window=window)
-                torch.cuda.synchronize()
-                e = (out.float() - ref.float()).abs()
-                bad = e > KERNEL_ATOL + KERNEL_RTOL * ref.float().abs()
-                err["paged"] = max(err["paged"], float(e.max()))
-                where = f"paged {shape} n={n} window={window} lens={lens}"
-                if not torch.isfinite(out).all() or bad.any():
-                    raise AssertionError(
-                        f"kernel disagrees with its plain version: {where}: "
-                        f"max abs err {float(e.max()):.4g}")
-                want = kv * rep["kv_tiles_executed"]
-                if int(tiles.item()) != want:
-                    raise AssertionError(
-                        f"{where}: kernel ran {int(tiles.item())} kv tiles, "
-                        f"slack_report says {want}")
-                cases += 1
+                run(True, n, h, kv, dh, [0, 1, 15, 16, 17, 255], window,
+                    "fragmented", 2 * MAX_LEN)
+    # the dense mode at a cache of 200 positions (no multiple of its
+    # 128-position tile: the second tile runs past the cache and is
+    # zero-filled), lengths at and across a tile edge
+    for h, kv, dh in shapes.values():
+        for n in (1, 16, 65):
+            for window in (None, 48):
+                run(False, n, h, kv, dh, [0, 1, 127, 128, 129, 200 - n],
+                    window, max_len=200)
     print(f"kernels: {cases} decode-attention cases agree with the plain "
           f"version within atol={KERNEL_ATOL} rtol={KERNEL_RTOL} (bf16); "
           f"executed kv tiles == slack_report; max abs err "
@@ -599,10 +590,11 @@ def time_moe(moe_ops, moe, weights) -> dict:
 # phase 3c: the Mamba1 selective scan against its plain version
 # ---------------------------------------------------------------------------
 
-def scan_inputs(b, s, seed=0) -> tuple:
+def scan_inputs(b, s, seed=0, widths=FALCON_SCAN) -> tuple:
     """x, dt (a softplus), B, C, A = -(1 .. ds) per channel (falcon's
-    A_log = log(1 .. ds)) and a nonzero h0, f32, at falcon widths."""
-    di, ds = FALCON_SCAN
+    A_log = log(1 .. ds)) and a nonzero h0, f32, at ``widths`` (d_inner,
+    d_state), falcon's by default."""
+    di, ds = widths
     g = torch.Generator(device="cuda").manual_seed(2000 + seed)
 
     def randn(*shape):
@@ -626,30 +618,34 @@ def s_padded(scan_ops, s) -> int:
 def check_scan(scan_ops) -> float:
     """Every selective-scan case of phase 3; returns the max abs error."""
     err, cases = 0.0, 0
-    for b in (1, 4):
-        for s in (1, 5, 16, 17, 48, 200):
-            args = scan_inputs(b, s, seed=cases)
-            y, h = scan_ops.selective_scan(*args)
-            yr, hr = scan_ops.selective_scan_ref(*args)
-            torch.cuda.synchronize()
-            where = f"scan b={b} s={s}"
-            for name, got, want in (("y", y, yr), ("state", h, hr)):
-                diff = (got - want).abs()
-                bad = diff > SCAN_ATOL + SCAN_RTOL * want.abs()
-                err = max(err, float(diff.max()))
-                if (got.shape != want.shape or not torch.isfinite(got).all()
-                        or bad.any()):
-                    raise AssertionError(
-                        f"scan kernel disagrees with its plain version: "
-                        f"{where} {name}: max abs err {float(diff.max()):.4g}")
-            sp = s_padded(scan_ops, s)
-            states = [scan_ops.selective_scan_padded(
-                *scan_padded(scan_ops, args, pad))[1] for pad in (sp, sp + 16)]
-            if not (torch.equal(states[0], states[1])
-                    and torch.equal(states[0], h)):
-                raise AssertionError(f"{where}: the state after the real "
-                                     "positions depends on the padding")
-            cases += 1
+    # falcon widths, then lane groups rounded up past ds (1, 5), the
+    # reduced config's ds 8 and the widest state (64) at a narrow d_inner
+    shapes = ([(b, s, FALCON_SCAN) for b in (1, 4)
+               for s in (1, 5, 16, 17, 48, 200)]
+              + [(4, 17, (256, ds)) for ds in (1, 5, 8, 64)])
+    for b, s, widths in shapes:
+        args = scan_inputs(b, s, seed=cases, widths=widths)
+        y, h = scan_ops.selective_scan(*args)
+        yr, hr = scan_ops.selective_scan_ref(*args)
+        torch.cuda.synchronize()
+        where = f"scan b={b} s={s} (di, ds)={widths}"
+        for name, got, want in (("y", y, yr), ("state", h, hr)):
+            diff = (got - want).abs()
+            bad = diff > SCAN_ATOL + SCAN_RTOL * want.abs()
+            err = max(err, float(diff.max()))
+            if (got.shape != want.shape or not torch.isfinite(got).all()
+                    or bad.any()):
+                raise AssertionError(
+                    f"scan kernel disagrees with its plain version: "
+                    f"{where} {name}: max abs err {float(diff.max()):.4g}")
+        sp = s_padded(scan_ops, s)
+        states = [scan_ops.selective_scan_padded(
+            *scan_padded(scan_ops, args, pad))[1] for pad in (sp, sp + 16)]
+        if not (torch.equal(states[0], states[1])
+                and torch.equal(states[0], h)):
+            raise AssertionError(f"{where}: the state after the real "
+                                 "positions depends on the padding")
+        cases += 1
     print(f"kernels: {cases} selective-scan cases agree with the plain "
           f"version within atol={SCAN_ATOL} rtol={SCAN_RTOL} (f32, y and "
           f"final state); the state is bitwise the same padded to the next "
@@ -1102,10 +1098,12 @@ def compare_streams(name, greedy, other, recs, routes, prompt_len,
     return full
 
 
-def serve_model(mods, arch, card, forward_rtol) -> dict:
-    """Phase 4 for one model: warm-up, the three serving runs, the stream
-    comparisons, the full-size forward check and the profile.  Returns
-    the launches by run."""
+def serve_model(mods, arch, card, forward_rtol,
+                dense_speculative=False) -> dict:
+    """Phase 4 for one model: warm-up, the three serving runs (and with
+    ``dense_speculative`` a fourth, whose verify forwards of width 16 run
+    the dense attention mode), the stream comparisons, the full-size
+    forward check and the profile.  Returns the launches by run."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config(arch)
@@ -1129,9 +1127,16 @@ def serve_model(mods, arch, card, forward_rtol) -> dict:
                     (routes, routes_spec), plen, shared)
     compare_streams(f"{cfg.name} dense greedy", greedy, dense,
                     [rec, rec_dense], (routes, routes_dense), plen, shared)
+    runs = {"paged_greedy": l1, "paged_speculative": l2, "dense_greedy": l3}
+    if dense_speculative:
+        dspec, runs["dense_speculative"], _, routes_dspec = serve_run(
+            mods, cfg, params, prompts, block_size=0, mode="speculative",
+            card=card)
+        compare_streams(f"{cfg.name} dense speculative", greedy, dspec,
+                        [rec], (routes, routes_dspec), plen, shared)
     check_forward(mods, cfg, params, prompts, forward_rtol)
     profile_steps(mods, cfg, params, prompts, card)
-    return {"paged_greedy": l1, "paged_speculative": l2, "dense_greedy": l3}
+    return runs
 
 
 def solo_greedy(mods, cfg, params, prompts, card) -> tuple:
@@ -1354,7 +1359,9 @@ def main() -> int:
             scan_ops)
     runs = {}
     for arch, serve, rtol in (
-            ("stablelm_3b", serve_model, FORWARD_RTOL),
+            ("stablelm_3b", functools.partial(serve_model,
+                                              dense_speculative=True),
+             FORWARD_RTOL),
             ("granite_moe_3b_a800m", serve_model, MOE_FORWARD_RTOL),
             ("falcon_mamba_7b", serve_ssm, SSM_FORWARD_RTOL)):
         for run, launches in serve(mods, arch, card, rtol).items():

@@ -2,9 +2,9 @@
 //
 // Replaces the Pallas TPU kernels of the reference package,
 // src/repro/kernels/decode_attention/kernel.py: decode_attention_pallas
-// (dense per-slot cache; dense_kernel here) and
-// decode_attention_paged_pallas (global paged pool + block tables;
-// paged_kernel here).  Both Pallas entries share the body _attn_kernel.
+// (dense per-slot cache) and decode_attention_paged_pallas (global paged
+// pool + block tables).  Both Pallas entries share the body _attn_kernel;
+// here both share attn_kernel, templated on how a kv position is addressed.
 //
 // What it computes.  For batch row b, the n new query positions sit at
 // logical positions len_b .. len_b+n-1 (their K/V already written to the
@@ -14,53 +14,55 @@
 // folded into the rows of one block, as the Pallas kernel folds them
 // into M = g*q_block.
 //
-// Grid (both modes).  One block per (q tile, kv head, batch row).  The q
-// tile is select_q_block(n, dh) of the port's core/granularity.py, so the
-// NFP predictor and this launch read the same M_attn.  Padded rows of the
+// Grid.  One block per (q tile, kv head, batch row).  The q tile is
+// select_q_block(n, dh) of the port's core/granularity.py, so the NFP
+// predictor and this launch read the same M_attn.  Padded rows of the
 // last q tile (query index >= n) are neither loaded nor stored.
 //
 // The kv loop is the TPU's sequential grid axis.  Its bounds are the
-// Pallas skip rule (kernel.py:70-77) turned into loop limits:
+// Pallas skip rule (kernel.py:70-77) turned into loop limits over kv
+// tiles of k_block positions (128 for the dense cache, one page for the
+// pool):
 //   hi_tile = min(n_kv_tiles, cdiv(len_b + min(n, (iq+1)*q_block), k_block))
 //   lo_tile = window ? max(0, floor((len_b + iq*q_block - window + 1) / k_block)) : 0
 // so a block executes exactly the tiles ops.slack_report counts as
 // kv_tiles_executed (an optional device counter adds them up).  Scores are
 // masked in logical positions (kernel.py:93-113) to the Pallas NEG_INF, so
-// a tile a row cannot see adds nothing once a visible one arrives; an
+// a position a row cannot see adds nothing once a visible one arrives; an
 // empty row (l == 0) outputs 0.
+//
+// Addressing.  Dense: position pos of row b is at ((b*s_max + pos)*kv +
+// kh)*dh; positions >= s_max (an s_max that is no multiple of 128) are
+// zero-filled, as the reference pads the cache with zeros to whole tiles,
+// and fall to the causal mask.  Paged: page = table[b][pos / bs], and the
+// position is at ((page*bs + pos % bs)*kv + kh)*dh.  The executed range
+// pos0 = lo_tile*k_block .. pos1 = hi_tile*k_block is walked whole, as the
+// Pallas kernel computes whole tiles, and masked.
 //
 // What bounds it on this card.  Decode attention is memory-bound: the
 // least time is the K/V bytes of the executed tiles (plus q and o) over
 // 3.35 TB/s — under a microsecond at serving lengths, below the launch
-// floor.  What a block actually waits for is latency: the row length and
-// block table, then its pages, each a round trip to device memory.
+// floor.  What a block actually waits for is latency: the row length (and
+// the block table), then its K/V, each a round trip to device memory.
 //
-// Dense mode (dense_kernel): one 128-position tile per step, staged in
-// shared memory by 16-byte loads, scores, softmax and P·V on CUDA cores
-// with four barriers per tile.  At serving lengths that is one or two
-// tiles, so its latency is a single round trip.
-//
-// Paged mode (paged_kernel).  A page holds only 16 positions, so the dense
-// mode's tile-by-tile walk would pay a round trip and four barriers per
-// page.  Instead the block walks the executed position range in 16-position
-// chunks (a page when bs = 16), four chunks to a pipeline step, in a ring
-// of three steps in shared memory: the 16-byte cp.async.cg copies of the
-// next two steps (eight pages of K and V, their addresses read from the
-// block table by the block itself) are in flight while one step is
-// computed, with one barrier per step.  The kv range is split inside the
-// block: with one 16-row m-tile of query rows (n = 1 up to 16 rows of
-// g·n) each of the four warps takes every fourth chunk, with two m-tiles
-// two warps share a tile and take every second chunk, with three or four
-// each warp takes one m-tile and every chunk.  Each warp keeps its own
-// running max, sum and f32 accumulator in registers; at the end the
-// partials of one m-tile are merged in split order 0, 1, 2, 3, so the
-// result is deterministic.  The math runs on tensor cores
-// (mma.sync.m16n8k16, f32 accumulation; query rows past the block's rows
-// are zero): Q·Kᵀ from bf16 q and K, exact products; P·V with the f32
-// probabilities split into bf16 hi + lo, two products per step, so P
-// keeps about 16 bits, as the Pallas kernel's f32 p.  Rows of shared
-// memory carry a 16-byte pad, so ldmatrix reads them without bank
-// conflicts.
+// Design.  The block walks the executed range in 16-position chunks, four
+// chunks to a pipeline step, in a ring of three steps in shared memory:
+// the 16-byte cp.async.cg copies of the next two steps (eight chunks of K
+// and V) are in flight while one step is computed, with one barrier per
+// step.  The kv range is split inside the block: with one 16-row m-tile of
+// query rows (n = 1 up to 16 rows of g·n) each of the four warps takes
+// every fourth chunk, with two m-tiles two warps share a tile and take
+// every second chunk, with three or four each warp takes one m-tile and
+// every chunk.  Each warp keeps its own running max, sum and f32
+// accumulator in registers; at the end the partials of one m-tile are
+// merged in split order 0, 1, 2, 3, so the result is deterministic.  More
+// than 64 rows (n = 65, or a GQA fold) loop over 64-row chunks.  The math
+// runs on tensor cores (mma.sync.m16n8k16, f32 accumulation; query rows
+// past the block's rows are zero): Q·Kᵀ from bf16 q and K, exact
+// products; P·V with the f32 probabilities split into bf16 hi + lo, two
+// products per step, so P keeps about 16 bits, as the Pallas kernel's f32
+// p.  Rows of shared memory carry a 16-byte pad, so ldmatrix reads them
+// without bank conflicts.
 //
 // Accepted inputs: bf16 q/k/v, dh % 16 == 0 and dh <= 128, k_block <= 128,
 // contiguous tensors, 16-byte-aligned bases.  The C entry points return
@@ -70,8 +72,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
-
 #include "mma_sync.cuh"
 
 namespace {
@@ -79,11 +79,13 @@ namespace {
 using namespace mma_sync;
 
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowChunk = 64;  // query rows resident in shared memory at once
 constexpr int kMaxDh = 128;
 constexpr int kMaxKBlock = 128;
 constexpr float kNegInf = -1e30f;  // the Pallas kernel's NEG_INF
+constexpr int kChunk = 16;     // kv positions of one chunk: the depth of one m16n8k16
+constexpr int kSlots = 4;      // chunks of one pipeline step
+constexpr int kSteps = 3;      // steps in the ring: two in flight while one is computed
+constexpr int kTileRows = 64;  // resident query rows: four 16-row m-tiles
 
 struct Params {
   const __nv_bfloat16* q;  // (b, n, h, dh)
@@ -96,209 +98,17 @@ struct Params {
   int b, n, h, kv, g, dh;
   int q_block, k_block, n_kv_tiles;
   int s_max;               // dense: positions per cache row
-  int max_blocks;          // paged: table width
   int window;              // < 0: no window
-  int row_chunk;           // resident rows (<= kRowChunk)
   float scale;
 };
 
-__host__ __device__ inline int align4(int words) { return (words + 3) & ~3; }
-
-// Shared-memory layout in 32-bit words.  bf16 rows are stored as bf16x2
-// words with a row stride of dh/2 + 1 (odd), so threads reading different
-// rows at the same column hit different banks.
+// Shared memory in bf16 elements: the query rows, then (from offset
+// `ring`) the ring of kSteps steps, each kSlots (K chunk, V chunk) pairs.
+// Rows hold dh + 8 elements (`ld`): the 16-byte pad staggers the banks for
+// ldmatrix.
 struct Layout {
-  int wpr, q, k, v, s, acc, m, l, alpha, total;
-  __host__ __device__ Layout(int row_chunk, int k_block, int dh) {
-    wpr = dh / 2 + 1;
-    q = 0;
-    k = q + align4(row_chunk * wpr);
-    v = k + align4(k_block * wpr);
-    s = v + align4(k_block * wpr);
-    acc = s + align4(row_chunk * k_block);
-    m = acc + align4(row_chunk * dh);
-    l = m + align4(row_chunk);
-    alpha = l + align4(row_chunk);
-    total = alpha + align4(row_chunk);
-  }
-};
-
-__device__ inline float2 bf2_to_f2(uint32_t w) {
-  __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&w);
-  return __bfloat1622float2(h);
-}
-
-__device__ inline uint32_t f2_to_bf2(float x, float y) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-
-__device__ inline float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ inline float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__global__ void __launch_bounds__(kThreads) dense_kernel(Params p) {
-  extern __shared__ uint32_t smem[];
-  const int iq = blockIdx.x, kh = blockIdx.y, bi = blockIdx.z;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int kb = p.k_block, dh = p.dh, hw = dh / 2, vec = dh / 8;
-  const Layout L(p.row_chunk, kb, dh);
-  uint32_t* q_s = smem + L.q;
-  uint32_t* k_s = smem + L.k;
-  uint32_t* v_s = smem + L.v;
-  float* s_s = reinterpret_cast<float*>(smem + L.s);
-  float* acc = reinterpret_cast<float*>(smem + L.acc);
-  float* m_s = reinterpret_cast<float*>(smem + L.m);
-  float* l_s = reinterpret_cast<float*>(smem + L.l);
-  float* a_s = reinterpret_cast<float*>(smem + L.alpha);
-
-  const int len = p.lens[bi];
-  const int q0 = iq * p.q_block;             // first query index of this q tile
-  const int nq = min(p.q_block, p.n - q0);   // valid query rows per head
-  const int rows = p.g * nq;                 // valid rows of the block
-
-  // the Pallas skip rule as loop bounds
-  const int hi = len + min(p.n, q0 + p.q_block);
-  const int hi_tile = min(p.n_kv_tiles, (hi + kb - 1) / kb);
-  int lo_tile = 0;
-  if (p.window >= 0) {
-    const int lo_visible = len + q0 - p.window + 1;
-    lo_tile = lo_visible > 0 ? lo_visible / kb : 0;
-  }
-  if (p.tiles != nullptr && tid == 0) atomicAdd(p.tiles, max(0, hi_tile - lo_tile));
-
-  for (int c0 = 0; c0 < rows; c0 += p.row_chunk) {
-    const int R = min(p.row_chunk, rows - c0);
-    // ---- resident query rows (row = gi*nq + qi, the Pallas g*q_block fold)
-    for (int idx = tid; idx < R * hw; idx += kThreads) {
-      const int r = idx / hw, w = idx - r * hw;
-      const int row = c0 + r, gi = row / nq, qi = row - gi * nq;
-      const size_t off = ((size_t)(bi * p.n + q0 + qi) * p.h + kh * p.g + gi) * dh;
-      q_s[r * L.wpr + w] = reinterpret_cast<const uint32_t*>(p.q + off)[w];
-    }
-    for (int r = tid; r < R; r += kThreads) {
-      m_s[r] = kNegInf;
-      l_s[r] = 0.f;
-    }
-    for (int idx = tid; idx < R * dh; idx += kThreads) acc[idx] = 0.f;
-    __syncthreads();
-
-    for (int tile = lo_tile; tile < hi_tile; ++tile) {
-      // ---- stage one K and one V tile (16-byte loads, zero past the cache)
-      for (int idx = tid; idx < kb * vec; idx += kThreads) {
-        const int j = idx / vec, c = idx - j * vec;
-        uint4 kw = make_uint4(0, 0, 0, 0), vw = kw;
-        const int pos = tile * kb + j;
-        const bool valid = pos < p.s_max;
-        const size_t off = ((size_t)(bi * p.s_max + pos) * p.kv + kh) * dh;
-        if (valid) {
-          kw = reinterpret_cast<const uint4*>(p.k + off)[c];
-          vw = reinterpret_cast<const uint4*>(p.v + off)[c];
-        }
-        uint32_t* kd = k_s + j * L.wpr + 4 * c;
-        uint32_t* vd = v_s + j * L.wpr + 4 * c;
-        kd[0] = kw.x; kd[1] = kw.y; kd[2] = kw.z; kd[3] = kw.w;
-        vd[0] = vw.x; vd[1] = vw.y; vd[2] = vw.z; vd[3] = vw.w;
-      }
-      __syncthreads();
-
-      // ---- scores, masked in logical positions
-      for (int idx = tid; idx < R * kb; idx += kThreads) {
-        const int r = idx / kb, j = idx - r * kb;
-        const uint32_t* qr = q_s + r * L.wpr;
-        const uint32_t* kr = k_s + j * L.wpr;
-        float dot = 0.f;
-        for (int w = 0; w < hw; ++w) {
-          const float2 a = bf2_to_f2(qr[w]), b = bf2_to_f2(kr[w]);
-          dot = fmaf(a.x, b.x, dot);
-          dot = fmaf(a.y, b.y, dot);
-        }
-        const int row = c0 + r, qi = row % nq;
-        const int q_pos = len + q0 + qi, kv_pos = tile * kb + j;
-        bool keep = kv_pos <= q_pos;
-        if (p.window >= 0) keep = keep && kv_pos > q_pos - p.window;
-        s_s[r * kb + j] = keep ? dot * p.scale : kNegInf;
-      }
-      __syncthreads();
-
-      // ---- online softmax, one warp per row
-      for (int r = warp; r < R; r += kWarps) {
-        float* sr = s_s + r * kb;
-        float mx = kNegInf;
-        for (int j = lane; j < kb; j += 32) mx = fmaxf(mx, sr[j]);
-        mx = warp_max(mx);
-        const float m_prev = m_s[r];
-        const float m_new = fmaxf(m_prev, mx);
-        float sum = 0.f;
-        for (int j = lane; j < kb; j += 32) {
-          const float e = expf(sr[j] - m_new);
-          sr[j] = e;
-          sum += e;
-        }
-        sum = warp_sum(sum);
-        if (lane == 0) {
-          const float alpha = expf(m_prev - m_new);
-          l_s[r] = alpha * l_s[r] + sum;
-          m_s[r] = m_new;
-          a_s[r] = alpha;
-        }
-      }
-      __syncthreads();
-
-      // ---- acc = alpha * acc + P @ V
-      for (int idx = tid; idx < R * hw; idx += kThreads) {
-        const int r = idx / hw, w = idx - r * hw;
-        const float* pr = s_s + r * kb;
-        float2* a2 = reinterpret_cast<float2*>(acc + r * dh) + w;
-        const float alpha = a_s[r];
-        float ax = alpha * a2->x, ay = alpha * a2->y;
-        for (int j = 0; j < kb; ++j) {
-          const float pj = pr[j];
-          const float2 vv = bf2_to_f2(v_s[j * L.wpr + w]);
-          ax = fmaf(pj, vv.x, ax);
-          ay = fmaf(pj, vv.y, ay);
-        }
-        *a2 = make_float2(ax, ay);
-      }
-      __syncthreads();
-    }
-
-    // ---- epilogue: normalize (empty row -> 0) and store bf16
-    for (int idx = tid; idx < R * hw; idx += kThreads) {
-      const int r = idx / hw, w = idx - r * hw;
-      const int row = c0 + r, gi = row / nq, qi = row - gi * nq;
-      float l = l_s[r];
-      l = (l == 0.f) ? 1.f : l;
-      const float2 a = reinterpret_cast<const float2*>(acc + r * dh)[w];
-      const size_t off = ((size_t)(bi * p.n + q0 + qi) * p.h + kh * p.g + gi) * dh;
-      reinterpret_cast<uint32_t*>(p.o + off)[w] = f2_to_bf2(a.x / l, a.y / l);
-    }
-    __syncthreads();
-  }
-}
-
-// ---------------------------------------------------------------------------
-// paged mode
-// ---------------------------------------------------------------------------
-
-constexpr int kChunk = 16;     // kv positions of one chunk: the depth of one m16n8k16
-constexpr int kSlots = 4;      // chunks of one pipeline step
-constexpr int kSteps = 3;      // steps in the ring: two in flight while one is computed
-constexpr int kTileRows = 64;  // resident query rows: four 16-row m-tiles
-
-// Shared memory of the paged kernel in bf16 elements: the query rows, then
-// (from offset `ring`) the ring of kSteps steps, each kSlots (K chunk, V
-// chunk) pairs.  Rows hold dh + 8 elements (`ld`): the 16-byte pad
-// staggers the banks for ldmatrix.
-struct PagedLayout {
   int ld, chunk, step, ring, total;
-  __host__ __device__ explicit PagedLayout(int dh) {
+  __host__ __device__ explicit Layout(int dh) {
     ld = dh + 8;
     chunk = kChunk * ld;
     step = kSlots * 2 * chunk;
@@ -306,6 +116,11 @@ struct PagedLayout {
     total = ring + kSteps * step;
   }
 };
+
+__device__ inline uint32_t f2_to_bf2(float x, float y) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
 
 // x, y -> bf16x2 hi and the bf16x2 of what hi leaves over
 __device__ inline void split_bf2(float x, float y, uint32_t* hi, uint32_t* lo) {
@@ -315,13 +130,14 @@ __device__ inline void split_bf2(float x, float y, uint32_t* hi, uint32_t* lo) {
   *lo = f2_to_bf2(x - back.x, y - back.y);
 }
 
-__global__ void __launch_bounds__(kThreads) paged_kernel(Params p) {
-  extern __shared__ __align__(16) uint8_t paged_smem[];
+template <bool kPaged>
+__global__ void __launch_bounds__(kThreads) attn_kernel(Params p) {
+  extern __shared__ __align__(16) uint8_t smem[];
   const int iq = blockIdx.x, kh = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int kb = p.k_block, dh = p.dh, vec = dh / 8, nk16 = dh / 16;
-  const PagedLayout L(dh);
-  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(paged_smem);
+  const Layout L(dh);
+  __nv_bfloat16* q_s = reinterpret_cast<__nv_bfloat16*>(smem);
   const uint32_t q_base = smem_addr(q_s), ring_base = smem_addr(q_s + L.ring);
 
   const int len = p.lens[bi];
@@ -341,10 +157,9 @@ __global__ void __launch_bounds__(kThreads) paged_kernel(Params p) {
   const int pos0 = lo_tile * kb, pos1 = hi_tile * kb;
   const int chunks = pos1 > pos0 ? (pos1 - pos0 + kChunk - 1) / kChunk : 0;
   const int steps = (chunks + kSlots - 1) / kSlots;
-  const int* table = p.tables + (size_t)bi * p.max_blocks;
 
   // K and V of step s's chunks into ring stage s % kSteps; positions past
-  // the executed range are zero (and masked)
+  // the executed range (and, dense, past the cache) are zero
   auto load_step = [&](int s) {
     const uint32_t st = ring_base + 2u * (uint32_t)((s % kSteps) * L.step);
     const int first = s * kSlots;
@@ -352,12 +167,16 @@ __global__ void __launch_bounds__(kThreads) paged_kernel(Params p) {
       const int r = idx / vec, c = idx - r * vec, slot = r / kChunk;
       if (first + slot >= chunks) break;
       const int pos = pos0 + first * kChunk + r;
-      const bool ok = pos < pos1;
-      size_t off = 0;
-      if (ok) {
-        const int page = __ldg(table + pos / kb);
-        off = ((size_t)page * kb + pos % kb) * p.kv * dh + (size_t)kh * dh + c * 8;
+      bool ok = pos < pos1;
+      size_t row = 0;
+      if (kPaged) {
+        const int* table = p.tables + (size_t)bi * p.n_kv_tiles;
+        if (ok) row = (size_t)__ldg(table + pos / kb) * kb + pos % kb;
+      } else {
+        ok = ok && pos < p.s_max;
+        row = (size_t)bi * p.s_max + pos;
       }
+      const size_t off = ok ? (row * p.kv + kh) * dh + c * 8 : 0;
       const uint32_t kd = st + 2u * (uint32_t)(2 * slot * L.chunk + (r % kChunk) * L.ld + c * 8);
       cp_async16(kd, p.k + off, ok);
       cp_async16(kd + 2u * L.chunk, p.v + off, ok);
@@ -542,44 +361,23 @@ __global__ void __launch_bounds__(kThreads) paged_kernel(Params p) {
   }
 }
 
-int check(const Params& p) {
-  return (p.dh % 16 != 0 || p.dh > kMaxDh || p.k_block < 1 || p.k_block > kMaxKBlock ||
-          p.q_block < 1 || p.n < 1 || p.kv < 1 || p.h % p.kv != 0)
-             ? (int)cudaErrorInvalidValue
-             : 0;
-}
-
-// raise the kernel's dynamic shared-memory limit to `bytes` once it needs more
-template <typename K>
-int allow_smem(K kernel, size_t bytes, size_t* configured) {
-  if (bytes <= *configured) return 0;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  *configured = bytes;
-  return 0;
-}
-
-int launch_dense(Params p, cudaStream_t stream) {
-  if (const int e = check(p)) return e;
+// check, raise the kernel's dynamic shared-memory limit once, launch
+template <bool kPaged>
+int launch(Params p, cudaStream_t stream) {
+  if (p.dh % 16 != 0 || p.dh > kMaxDh || p.k_block < 1 || p.k_block > kMaxKBlock ||
+      p.q_block < 1 || p.n < 1 || p.kv < 1 || p.h % p.kv != 0)
+    return (int)cudaErrorInvalidValue;
   p.g = p.h / p.kv;
-  p.row_chunk = std::min(kRowChunk, p.g * std::min(p.q_block, p.n));
-  const size_t smem = sizeof(uint32_t) * (size_t)Layout(p.row_chunk, p.k_block, p.dh).total;
+  const size_t smem = sizeof(__nv_bfloat16) * (size_t)Layout(p.dh).total;
   static size_t configured = 48 * 1024;
-  if (const int e = allow_smem(dense_kernel, smem, &configured)) return e;
+  if (smem > configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_kernel<kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    configured = smem;
+  }
   const dim3 grid((p.n + p.q_block - 1) / p.q_block, p.kv, p.b);
-  dense_kernel<<<grid, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
-}
-
-int launch_paged(Params p, cudaStream_t stream) {
-  if (const int e = check(p)) return e;
-  p.g = p.h / p.kv;
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)PagedLayout(p.dh).total;
-  static size_t configured = 48 * 1024;
-  if (const int e = allow_smem(paged_kernel, smem, &configured)) return e;
-  const dim3 grid((p.n + p.q_block - 1) / p.q_block, p.kv, p.b);
-  paged_kernel<<<grid, kThreads, smem, stream>>>(p);
+  attn_kernel<kPaged><<<grid, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -600,8 +398,8 @@ extern "C" int decode_attention_dense(const void* q, const void* k, const void* 
   p.b = b; p.n = n; p.h = h; p.kv = kv; p.dh = dh;
   p.q_block = q_block; p.k_block = k_block;
   p.n_kv_tiles = (s_max + k_block - 1) / k_block;
-  p.s_max = s_max; p.max_blocks = 0; p.window = window; p.scale = scale;
-  return launch_dense(p, static_cast<cudaStream_t>(stream));
+  p.s_max = s_max; p.window = window; p.scale = scale;
+  return launch<false>(p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int decode_attention_paged(const void* q, const void* k_pool, const void* v_pool,
@@ -620,6 +418,6 @@ extern "C" int decode_attention_paged(const void* q, const void* k_pool, const v
   p.b = b; p.n = n; p.h = h; p.kv = kv; p.dh = dh;
   p.q_block = q_block; p.k_block = block_size;
   p.n_kv_tiles = max_blocks;
-  p.s_max = 0; p.max_blocks = max_blocks; p.window = window; p.scale = scale;
-  return launch_paged(p, static_cast<cudaStream_t>(stream));
+  p.s_max = 0; p.window = window; p.scale = scale;
+  return launch<true>(p, static_cast<cudaStream_t>(stream));
 }

@@ -18,6 +18,13 @@ __device__ inline void cp_async16(uint32_t dst, const void* src, bool valid) {
                : "memory");
 }
 
+// 4 bytes global -> shared (through L1), or 4 zero bytes where !valid
+__device__ inline void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
 __device__ inline void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
 
 // wait until at most kPending committed groups of this thread are in flight

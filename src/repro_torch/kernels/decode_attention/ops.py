@@ -19,10 +19,11 @@ logically: rows past ``n`` are skipped, so no padded copy of q exists.
 padded query rows, executed vs grid kv tiles under the kernel's per-row
 skip rule); the kernel executes exactly its ``kv_tiles_executed``.
 
-``decode_attention_paged_split`` emulates the paged kernel's split of the
-kv range inside a block (per-split running max, sum and accumulator over
-the same chunk partition, merged in the kernel's order); the tests hold it
-against the reference's paged Pallas kernel.  It is on no serving path.
+``decode_attention_split`` emulates the kernel's split of the kv range
+inside a block, in either addressing mode (per-split running max, sum and
+accumulator over the same chunk partition, merged in the kernel's order);
+the tests hold it against the reference's dense and paged Pallas kernels.
+It is on no serving path.
 """
 from __future__ import annotations
 
@@ -31,13 +32,14 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.granularity import cdiv, round_up, select_q_block
 from repro_torch.kernels.build import load_library
 
 K_BLOCK = 128
 NEG_INF = -1e30
-# the paged kernel's partition: 16-position chunks, 64 resident query rows
+# the kernel's partition: 16-position chunks, 64 resident query rows
 KV_CHUNK = 16
 TILE_ROWS = 64
 
@@ -124,38 +126,47 @@ def decode_attention_paged_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 
 def kv_splits(rows: int) -> int:
-    """Splits of the kv range in the paged kernel for ``rows`` (<= 64)
-    resident query rows: four warps over 16-row m-tiles, so 4 for one
-    m-tile, 2 for two, 1 for three or four."""
+    """Splits of the kv range in the kernel for ``rows`` (<= 64) resident
+    query rows: four warps over 16-row m-tiles, so 4 for one m-tile, 2 for
+    two, 1 for three or four."""
     return {1: 4, 2: 2}.get(cdiv(rows, 16), 1)
 
 
-def decode_attention_paged_split(q: Tensor, k_pool: Tensor, v_pool: Tensor,
-                                 cache_lens: Lens, block_tables: Tensor, *,
-                                 window: Optional[int] = None) -> Tensor:
-    """The paged kernel's arithmetic in float32: per (row, q tile, kv
-    head) and chunk of at most ``TILE_ROWS`` query rows, the executed
-    positions (the skip rule's tiles) in ``KV_CHUNK``-position chunks,
-    chunk i to split ``i % kv_splits(rows)``; each split runs its own
-    online softmax (scores masked to ``NEG_INF``) over its chunks in
-    order, and the splits merge in split order; an empty row gives 0.
-    Same arguments and result as ``decode_attention_paged``."""
+def decode_attention_split(q: Tensor, k: Tensor, v: Tensor,
+                           cache_lens: Lens,
+                           block_tables: Optional[Tensor] = None, *,
+                           window: Optional[int] = None) -> Tensor:
+    """The kernel's arithmetic in float32, dense (``block_tables`` None:
+    k/v the (b, s, kv, dh) cache, kv tile ``K_BLOCK``, zero past s) or
+    paged (k/v the pool, kv tile its page): per (row, q tile, kv head) and
+    chunk of at most ``TILE_ROWS`` query rows, the executed positions (the
+    skip rule's whole tiles) in ``KV_CHUNK``-position chunks, chunk i to
+    split ``i % kv_splits(rows)``; each split runs its own online softmax
+    (scores masked to ``NEG_INF``) over its chunks in order, and the splits
+    merge in split order; an empty row gives 0.  Same arguments and result
+    as ``decode_attention_ragged`` / ``decode_attention_paged``."""
     b, n, h, dh = q.shape
-    bs, kv = k_pool.shape[1], k_pool.shape[2]
-    g, max_blocks = h // kv, block_tables.shape[1]
+    kv = k.shape[2]
+    g = h // kv
+    if block_tables is None:
+        kb, n_tiles = K_BLOCK, cdiv(k.shape[1], K_BLOCK)
+        pad = (0, 0, 0, 0, 0, n_tiles * kb - k.shape[1])
+        k_virt, v_virt = F.pad(k.float(), pad), F.pad(v.float(), pad)
+    else:
+        kb, n_tiles = k.shape[1], block_tables.shape[1]
+        k_virt = paged_gather(k, block_tables).float()
+        v_virt = paged_gather(v, block_tables).float()
     qb = select_q_block(n, dh)
     scale = 1.0 / (dh ** 0.5)
     lens = row_lens(cache_lens, b, q.device).tolist()
-    k_virt = paged_gather(k_pool, block_tables).float()
-    v_virt = paged_gather(v_pool, block_tables).float()
     out = torch.zeros((b, n, h, dh), dtype=torch.float32, device=q.device)
     for bi, ln in enumerate(lens):
         for q0 in range(0, n, qb):
             nq = min(qb, n - q0)
-            hi_tile = min(max_blocks, cdiv(ln + min(n, q0 + qb), bs))
+            hi_tile = min(n_tiles, cdiv(ln + min(n, q0 + qb), kb))
             lo_tile = (0 if window is None
-                       else max(0, (ln + q0 - window + 1) // bs))
-            pos0, pos1 = lo_tile * bs, hi_tile * bs
+                       else max(0, (ln + q0 - window + 1) // kb))
+            pos0, pos1 = lo_tile * kb, hi_tile * kb
             chunks = cdiv(pos1 - pos0, KV_CHUNK) if pos1 > pos0 else 0
             # (kv, g*nq, dh), row = gi*nq + qi (the Pallas g*q_block fold)
             qt = q[bi, q0:q0 + nq].float().reshape(nq, kv, g, dh).permute(

@@ -12,13 +12,17 @@ header for the design and what bounds it) or raises; only a tensor on
 the CPU takes the plain version ``selective_scan_ref``.  The padding
 runs on both paths, and the padded steps are computed on both.
 
+``selective_scan_split`` emulates the kernel's sum of y over a channel's
+lane group (S states per lane, the partials summed in the butterfly's
+fixed order); the tests hold it against the reference's Pallas kernel.
+
 Layouts are the reference's: x/dt ``(b, s, di)``, B/C ``(b, s, ds)``,
 A ``(di, ds)``, h0 ``(b, di, ds)``, all float32.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Callable, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core.granularity import round_up, select_scan_chunk
 from repro_torch.kernels.build import load_library
 
-MAX_STATE = 64        # the kernel keeps a channel's ds states in registers
+MAX_STATE = 64        # the kernel's widest lane group: 16 lanes of 4 states
 
 Tensor = torch.Tensor
 
@@ -45,10 +49,11 @@ def _kernels() -> ctypes.CDLL:
 # plain PyTorch version (the reference's ref.py / _mamba1_scan)
 # ---------------------------------------------------------------------------
 
-def selective_scan_ref(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
-                       a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
-    """A loop over positions.  Returns (y (b, s, di), h_final (b, di,
-    ds)), float32."""
+def _recurrence(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                a: Tensor, h0: Tensor, read_y: Callable[[Tensor, Tensor],
+                                                        Tensor]
+                ) -> Tuple[Tensor, Tensor]:
+    """A loop over positions; ``read_y(h_t, C_t)`` gives y_t."""
     h = h0
     ys = []
     for t in range(x.shape[1]):
@@ -56,8 +61,47 @@ def selective_scan_ref(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
         da = torch.exp(dt_t[..., None] * a[None])               # (b, di, ds)
         dbx = (dt_t * x[:, t])[..., None] * b_in[:, t, None, :]
         h = da * h + dbx
-        ys.append(torch.einsum("bds,bs->bd", h, c_in[:, t]))
+        ys.append(read_y(h, c_in[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_ref(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                       a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """Returns (y (b, s, di), h_final (b, di, ds)), float32."""
+    return _recurrence(x, dt, b_in, c_in, a, h0,
+                       lambda h, c: torch.einsum("bds,bs->bd", h, c))
+
+
+def lane_group(ds: int, states_per_lane: int) -> int:
+    """The kernel's lanes per channel: ds / states_per_lane rounded up to
+    a power of two."""
+    g = 1
+    while g * states_per_lane < ds:
+        g *= 2
+    return g
+
+
+def selective_scan_split(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                         a: Tensor, h0: Tensor, states_per_lane: int
+                         ) -> Tuple[Tensor, Tensor]:
+    """The plain recurrence (the state bitwise ``selective_scan_ref``'s)
+    with y summed as the kernel sums it: the ds states zero-padded to the
+    lane group's G·S, each lane's S terms h·C in state order, then the G
+    lane partials in the butterfly's fixed pairwise tree ((p0 + p1) + (p2
+    + p3)) + ...  On no serving path."""
+    s = states_per_lane
+    g = lane_group(a.shape[-1], s)
+
+    def read_y(h, c):
+        terms = F.pad(h * c[:, None, :], (0, g * s - h.shape[-1]))
+        terms = terms.reshape(*h.shape[:2], g, s)
+        part = terms[..., 0]
+        for i in range(1, s):
+            part = part + terms[..., i]
+        while part.shape[-1] > 1:
+            part = part[..., 0::2] + part[..., 1::2]
+        return part[..., 0]
+    return _recurrence(x, dt, b_in, c_in, a, h0, read_y)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """The Hopper kernels (decode attention, the fused grouped MoE FFN, the
-Mamba1 selective scan) against their plain versions on the card (the paged
-attention kernel also against its split-KV emulation).  Needs an NVIDIA GPU (marker ``gpu``;
-skipped elsewhere) and imports no JAX, so it runs on the machine with the
-card:
+Mamba1 selective scan) against their plain versions on the card (decode
+attention in both addressing modes also against its split emulation).
+Needs an NVIDIA GPU (marker ``gpu``; skipped elsewhere) and imports no
+JAX, so it runs on the machine with the card:
 
     python -m pytest -m gpu tests/test_torch_cuda_kernels.py
 
@@ -13,9 +13,10 @@ reference's ref.py), so they differ by a few bf16 steps (atol 3e-2, rtol
 sums run in other orders, so an output may round to the neighbouring bf16
 value (rtol 8e-3 = two bf16 steps, atol 2e-2 for outputs near 0 whose f32
 sums cancel terms of magnitude ~100).  Selective scan: both sides f32; the
-kernel may fuse each step's multiply-add and sums y over ds in another
-order, about one rounding per step, which the decaying recurrence keeps
-from growing (atol = rtol = 1e-4)."""
+kernel fuses each step's multiply-add, takes exp as ex2.approx (a few
+ulps) and sums y over a lane group in a fixed pairwise order, about one
+rounding per step, which the decaying recurrence keeps from growing (atol
+= rtol = 1e-4)."""
 from __future__ import annotations
 
 import numpy as np
@@ -99,6 +100,35 @@ def test_paged_kernel_matches_plain(ops, n):
     assert int(tiles.item()) == kv * want["kv_tiles_executed"]
 
 
+@pytest.mark.parametrize("window", [None, 48])
+@pytest.mark.parametrize("n", [1, 16, 65])
+@pytest.mark.parametrize("heads", [(32, 32, 80), (32, 8, 128)],
+                         ids=["stablelm", "wedlm"])
+def test_dense_kernel_cache_edge(ops, heads, n, window):
+    """A cache of 200 positions (no multiple of the 128-position tile: the
+    second tile runs past it and is zero-filled), lengths at and across a
+    tile edge (0, 1, 127, 128, 129, full); n = 65 with GQA (wedlm, g = 4)
+    folds 256 rows per q tile into 64-row chunks.  Against the plain
+    version and the split emulation; executed tiles counted."""
+    h, kv, dh = heads
+    g = torch.Generator(device="cuda").manual_seed(200 + n)
+    s = 200
+    q, k, v = _bf16(g, 6, n, h, dh), _bf16(g, 6, s, kv, dh), \
+        _bf16(g, 6, s, kv, dh)
+    lens = [0, 1, 127, 128, 129, s - n]
+    lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
+                                      tiles=tiles)
+    torch.testing.assert_close(
+        out, ops.decode_attention_ref(q, k, v, lens_t, window=window), **TOL)
+    torch.testing.assert_close(
+        out, ops.decode_attention_split(q, k, v, lens_t, window=window),
+        **TOL)
+    want = ops.slack_report(n, lens, s, head_dim=dh, window=window)
+    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+
+
 def _paged_pool(g, lens, n, h, kv, dh, max_blocks, seed, bs=16):
     """q and a fragmented pool of ``bs``-position pages covering each
     row's lens + n positions, unassigned table entries on a trash page of
@@ -141,8 +171,8 @@ def test_paged_kernel_pipeline(ops, heads, n, window):
         out, ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
                                             window=window), **TOL)
     torch.testing.assert_close(
-        out, ops.decode_attention_paged_split(q, k, v, lens_t, tables,
-                                              window=window), **TOL)
+        out, ops.decode_attention_split(q, k, v, lens_t, tables,
+                                        window=window), **TOL)
     want = ops.slack_report(n, lens, 512, head_dim=dh, k_block=16,
                             window=window)
     assert int(tiles.item()) == kv * want["kv_tiles_executed"]
@@ -384,3 +414,29 @@ def test_scan_kernel_refuses_what_it_does_not_take(scan_ops):
     big = list(_scan_inputs(g, 1, 16, 32, 65))
     with pytest.raises(ValueError, match="d_state"):
         scan_ops.selective_scan_padded(*big)
+
+
+@pytest.mark.parametrize("di", [128, 130], ids=["di128", "di130"])
+@pytest.mark.parametrize("ds", [1, 5, 64])
+def test_scan_kernel_narrow_and_wide_states(scan_ops, ds, di):
+    """Lane groups rounded up past ds (ds 1 and 5: idle states) and the
+    widest state (ds 64); di 130 takes the 4-byte copies."""
+    g = torch.Generator(device="cuda").manual_seed(ds + di)
+    args = _scan_inputs(g, 3, 17, di, ds)
+    y, h = scan_ops.selective_scan(*args)
+    yr, hr = scan_ops.selective_scan_ref(*args)
+    torch.testing.assert_close(y, yr, **SCAN_TOL)
+    torch.testing.assert_close(h, hr, **SCAN_TOL)
+
+
+def test_scan_kernel_rows_are_invariant(scan_ops):
+    """A batch row gives bitwise the same y and state alone (b = 1) and
+    among four (b = 4): y is summed in a fixed order."""
+    g = torch.Generator(device="cuda").manual_seed(5)
+    args = _scan_inputs(g, 4, 48, 8192, 16)
+    y4, h4 = scan_ops.selective_scan(*args)
+    row = [t[2:3].contiguous() for t in args[:4]] + [args[4],
+                                                    args[5][2:3].contiguous()]
+    y1, h1 = scan_ops.selective_scan(*row)
+    assert torch.equal(y1[0], y4[2])
+    assert torch.equal(h1[0], h4[2])

@@ -133,7 +133,7 @@ def test_wrapper_rejects_unknown_device_types():
 
 
 # ---------------------------------------------------------------------------
-# the paged kernel's split of the kv range (emulated in float32)
+# the kernel's split of the kv range in the paged mode (emulated in float32)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("window", [None, 24])
@@ -142,7 +142,7 @@ def test_wrapper_rejects_unknown_device_types():
                          ids=["contiguous", "fragmented"])
 @pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
 def test_paged_split_emulation_matches_reference(heads, layout, n, window):
-    """The paged kernel's per-split online softmax over 16-position chunks,
+    """The paged mode's per-split online softmax over 16-position chunks,
     merged in split order, against the reference's paged Pallas kernel in
     interpret mode.  Rows: an empty one (length 0), lengths inside a page
     and at its edges (1, 15, 16, 17) and a full row; with GQA, n = 16
@@ -158,7 +158,7 @@ def test_paged_split_emulation_matches_reference(heads, layout, n, window):
     want = ref_ops.decode_attention_paged(
         jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
         jnp.asarray(lens), jnp.asarray(tables), window=window)
-    got = ops.decode_attention_paged_split(
+    got = ops.decode_attention_split(
         torch.as_tensor(q), torch.as_tensor(k_pool), torch.as_tensor(v_pool),
         torch.as_tensor(lens), torch.as_tensor(tables), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
@@ -179,8 +179,8 @@ def test_paged_split_emulation_long_rows(n):
                               _pool(rng, k, v, lens, n, bs, "fragmented"))
     q, lens = torch.as_tensor(q), torch.as_tensor(lens)
     for window in (None, 40):
-        got = ops.decode_attention_paged_split(q, k_pool, v_pool, lens,
-                                               tables, window=window)
+        got = ops.decode_attention_split(q, k_pool, v_pool, lens, tables,
+                                         window=window)
         want = ops.decode_attention_paged_ref(q, k_pool, v_pool, lens,
                                               tables, window=window)
         torch.testing.assert_close(got, want, atol=ATOL, rtol=RTOL)
@@ -200,7 +200,7 @@ def test_paged_split_emulation_page_sizes(bs):
         want = ref_ops.decode_attention_paged(
             jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
             jnp.asarray(lens), jnp.asarray(tables), window=window)
-        got = ops.decode_attention_paged_split(
+        got = ops.decode_attention_split(
             torch.as_tensor(q), torch.as_tensor(k_pool),
             torch.as_tensor(v_pool), torch.as_tensor(lens),
             torch.as_tensor(tables), window=window)
@@ -212,3 +212,36 @@ def test_paged_split_emulation_page_sizes(bs):
                                          (33, 1), (64, 1)])
 def test_kv_splits_follow_the_warp_layout(rows, splits):
     assert ops.kv_splits(rows) == splits
+
+
+# ---------------------------------------------------------------------------
+# the kernel's split in the dense mode (emulated in float32)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("s", [256, 200], ids=["s256", "s200"])
+@pytest.mark.parametrize("window", [None, 24])
+@pytest.mark.parametrize("n", [1, 16, 65])
+@pytest.mark.parametrize("heads", [(4, 4), (8, 2)], ids=["mha", "gqa"])
+def test_dense_split_emulation_matches_reference(heads, n, window, s):
+    """The kernel's dense mode: whole 128-position tiles of the skip rule
+    walked in 16-position chunks, split over the warps and merged in split
+    order, against the reference's dense Pallas kernel in interpret mode.
+    Rows of lengths 0, 1, 127, 128, 129 (at and across a tile edge) and a
+    full row; with GQA n = 16 gives 64 resident rows (one split per warp)
+    and n = 65 two q tiles of up to 256 rows (64-row chunks).  s = 200 is
+    no multiple of 128: the last tile runs past the cache, which the kernel
+    zero-fills as the reference pads it.  float32 inputs (2e-5, as
+    above)."""
+    h, kv = heads
+    rng = np.random.default_rng(11 + n + s)
+    b, dh = 6, 16
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 1, 127, 128, 129, s - n], np.int32)
+    want = ref_ops.decode_attention_ragged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        window=window)
+    got = ops.decode_attention_split(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        torch.as_tensor(lens), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)

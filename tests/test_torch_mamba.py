@@ -530,3 +530,31 @@ def test_zamba2_is_not_ported():
         port_init(cfg, torch.Generator(), "cpu")
     with pytest.raises(ValueError, match="not ported"):
         port_config("zamba2_1p2b")
+
+
+# ---------------------------------------------------------------------------
+# the kernel's lane-group sum of y (emulated)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("states_per_lane", [2, 4])
+@pytest.mark.parametrize("s", [1, 17, 48])
+@pytest.mark.parametrize("ds", [5, 8, 16])
+def test_scan_split_matches_reference(ds, s, states_per_lane):
+    """y summed over the rounded lane group in the butterfly's order (ds 5:
+    idle states in the last lane) against the reference's Pallas kernel in
+    interpret mode, within 1e-5; the state is the plain recurrence's,
+    bitwise."""
+    args = _scan_inputs(2, s, 32, ds, seed=ds + s)
+    yk, hk = ref_scan(*map(jnp.asarray, args), interpret=True)
+    y, h = ops.selective_scan_split(*map(_t, args), states_per_lane)
+    _close(y, yk)
+    _close(h, hk)
+    _, h_plain = ops.selective_scan_ref(*map(_t, args))
+    assert torch.equal(h, h_plain)
+
+
+@pytest.mark.parametrize("ds,states_per_lane,group",
+                         [(1, 4, 1), (4, 4, 1), (5, 4, 2), (8, 4, 2),
+                          (16, 4, 4), (16, 2, 8), (64, 4, 16), (64, 2, 32)])
+def test_lane_group_rounds_up_to_a_power_of_two(ds, states_per_lane, group):
+    assert ops.lane_group(ds, states_per_lane) == group
