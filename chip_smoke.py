@@ -19,13 +19,17 @@ Phases, in order; any failure exits non-zero:
                 pages than its ring holds), n in {1, 16, 17}; then the
                 dense mode at a 200-position cache (its second 128-position
                 tile runs past the cache), lengths 0, 1, 127, 128, 129 and
-                full, n in {1, 16, 65}; the executed kv tiles must equal
-                slack_report's.  The fused grouped MoE FFN against its
+                full, n in {1, 16, 65}; then wedlm8b_like's diffusion
+                shapes, n = 16 and 17 at serving lengths 48-112 in both
+                modes; the executed kv tiles must equal slack_report's.  The fused grouped MoE FFN against its
                 plain version at granite shapes (E 40, top-8, d 1536, f
                 512, swiglu) for T in {1, 4, 16, 40, 41, 256} under
                 balanced, skewed and router routing, every row on one
                 expert (T = 16, 41), f 1024 swiglu and gelu (T = 4 / 16,
-                41) and llada_mini shapes (E 256, d 2048) at T = 4;
+                41) and llada_mini_like shapes (E 256, top-8, d 2048, f
+                512) at T = 4 and at its serving T's: decode 4 x (w + 1)
+                = 64 and 68, prefill 4 x 48 = 192 and the 64-position
+                bucket's 256;
                 executed blocks must equal sum ceil(g_e / token_block), and
                 a row must give bitwise the same output at T = 1 and T = 41
                 (junk in the padding rows).
@@ -35,7 +39,9 @@ Phases, in order; any failure exits non-zero:
                 {1, 5, 8, 64} (lane groups rounded up past ds), with a
                 nonzero h0: y and the final state, and the state after the
                 s real positions bitwise the same under two paddings.  Then
-                times each kernel (decode attention at n = 1 and 16), its
+                times each kernel (decode attention at n = 1 and 16 at
+                stablelm_3b's shapes and n = 17 at wedlm8b_like's; the MoE
+                FFN at granite's and llada's decode and prefill), its
                 plain version and a library call
                 (scaled_dot_product_attention; torch._grouped_mm; none
                 computes a selective scan), never called by the port, the
@@ -69,12 +75,39 @@ Phases, in order; any failure exits non-zero:
                 forward the plain scan's; in bf16 both comparisons are
                 printed only (64 random-weight layers amplify a bf16
                 rounding into logits that part wholesale).
+                Then the paper's two validation models, full size, seeded
+                random bf16 weights, the same 8 requests: wedlm8b_like
+                (dense, GQA 32/8 x 128) paged greedy, paged MTP (a 4-head
+                bank), paged diffusion at the budget's width and dense
+                diffusion at block 16 (n = 17, two m-tiles, in every
+                refinement forward); llada_mini_like (MoE, E 256 top-8)
+                paged greedy, paged MTP and paged diffusion.  Checks:
+                completion; launches (decode attention = layers x
+                decode-shape forwards, every refinement and commit forward
+                one; MoE = layers x all forwards); MTP streams == paged
+                greedy under the GAP_TOL / ROUTER_TOL rule; diffusion
+                tokens per forward > 1; each slot's committed K/V against a
+                prefill of its stream, read before the slot is released
+                (FORWARD_RTOL per position in bf16); batched diffusion
+                against the single-request DiffusionBlockDecoder at the
+                same block, request by request, parting only at a
+                near-tie of the selection (printed in bf16, held in f32);
+                the full-size forward kernel-vs-plain.  The diffusion runs
+                repeat in float32 (wedlm at full size, 33 GB; llada at
+                full width and 8 of its 20 layers, printed as a cut)
+                through the plain versions (the kernels take bf16 only),
+                where the solo comparison and the K/V check are held.
+                Every run prints its forwards, positions per forward,
+                budget range and tok/s, and a profile of its steady steps
+                its device-idle share.
   5. report   — one JSON line of kernels, the card line, and the final
                 {"ok": true, ...} line.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import gc
 import json
 import statistics
 import subprocess
@@ -135,6 +168,34 @@ GAP_TOL = 2 * 2.0 ** -5
 # above it and the tokens after it route on states that legitimately
 # differ
 ROUTER_TOL = 2.0 ** -4
+# diffusion: the batched run (4 rows, ragged) and the batch-1
+# DiffusionBlockDecoder may pick other positions only where, in the first
+# refinement forward whose picks differ, the two runs' confidence margins
+# between a position picked in one run and one picked in the other sum to
+# <= CONF_RTOL of the confidence (or a picked token's top-2 gap <= the gap
+# tolerance, or, MoE, the row's smallest router margin in that forward <=
+# the router tolerance).  In float32 the two runs' logits differ by ~1e-5
+# (f32 batch-1 vs batch-4 forwards, measured for falcon at 8.4e-5
+# relative through 64 layers), so 2^-10 leaves a ~100-fold margin; router
+# logits (one f32 product) differ by ~1e-6, and 2^-16 leaves ~10-fold.  In
+# bf16 the comparison is printed only (with ROUTER_TOL it excuses every
+# MoE parting: some router margin of a forward is always that small)
+CONF_RTOL_F32 = 2.0 ** -10
+GAP_TOL_F32 = 2.0 ** -10
+ROUTER_TOL_F32 = 2.0 ** -16
+CONF_RTOL_BF16 = 2.0 ** -4
+# a slot's committed K/V against a prefill of its stream: per position,
+# ||a - b|| / ||b|| over layers and heads; bf16 as the full-size forward
+# check, f32 ten times the f32 forward bound.  An MoE model is held at
+# its first layer, whose K/V come from the tokens alone: deeper layers
+# take a routing flip at a router near-tie between the decode-shape and
+# the prefill forward (a flipped expert moves a position's state by
+# O(1), as the full-size forward with the router shows), and are printed.
+# A mask-token input at a committed position shows at the first layer
+KV_RTOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
+# llada_mini_like in float32 (67 GB at 20 layers) runs at full width and
+# this depth
+LLADA_F32_LAYERS = 8
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
@@ -292,6 +353,15 @@ def check_kernels(ops) -> dict:
             for window in (None, 48):
                 run(False, n, h, kv, dh, [0, 1, 127, 128, 129, 200 - n],
                     window, max_len=200)
+    # wedlm8b_like's diffusion forwards: n = 16 (a block of 15 at the
+    # budget's width) and 17 (block 16: two m-tiles, g = 4 -> 68 rows) at
+    # serving lengths, four slots
+    h, kv, dh = shapes["wedlm8b_like"]
+    for paged in (False, True):
+        for n in (16, 17):
+            for lens in ([48, 64, 96, 112], [48, 63, 79, 111]):
+                run(paged, n, h, kv, dh, lens, None,
+                    "fragmented" if paged else "")
     print(f"kernels: {cases} decode-attention cases agree with the plain "
           f"version within atol={KERNEL_ATOL} rtol={KERNEL_RTOL} (bf16); "
           f"executed kv tiles == slack_report; max abs err "
@@ -317,12 +387,14 @@ def _bound(bytes_, flops, peak_flops=PEAK_BF16_FLOPS) -> tuple:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def time_kernels(ops, n: int) -> dict:
-    """Kernel, plain and library times at the serving shapes of
-    stablelm_3b (4 slots mid-stream, n query positions per row)."""
+def time_kernels(ops, n: int, shape=(32, 32, 80), lens=(64, 72, 80, 96)
+                 ) -> dict:
+    """Kernel, plain and library times at serving shapes: by default
+    stablelm_3b's (h = kv = 32, dh = 80; 4 slots mid-stream), n query
+    positions per row."""
     F = torch.nn.functional
-    h, kv, dh = 32, 32, 80
-    lens = [64, 72, 80, 96]
+    h, kv, dh = shape
+    lens = list(lens)
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     out = {}
     for paged in (False, True):
@@ -344,7 +416,8 @@ def time_kernels(ops, n: int) -> dict:
         qt = q.transpose(1, 2).contiguous()
         kt = k_virt.transpose(1, 2).contiguous()
         vt = v_virt.transpose(1, 2).contiguous()
-        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=mask, enable_gqa=h != kv)
         bound, by = kernel_bound_ms(lens, n, h, kv, dh, paged)
         # the same bound with K/V counted per executed tile, as the kernel
         # reads it (tile quantization included)
@@ -443,8 +516,11 @@ def check_moe(moe_ops, moe) -> float:
     gelu = moe_weights(e, d, 1024, gated=False, seed=2)
     for t in (16, 41):
         cases.append(("gelu f=1024", gelu, k, t, "router"))
+    # llada_mini_like: T = 4, and its serving T's — decode 4 x (w + 1) at
+    # w = 15 and 16, prefill 4 x 48 and the 64-position bucket's 4 x 64
     llada = moe_weights(LLADA_MOE[0], LLADA_MOE[2], LLADA_MOE[3], seed=3)
-    cases.append(("llada_mini", llada, LLADA_MOE[1], 4, "router"))
+    for t in (4, 64, 68, 192, 256):
+        cases.append(("llada_mini_like", llada, LLADA_MOE[1], t, "router"))
     err = 0.0
     for i, (name, w, k, t, routing) in enumerate(cases):
         a = moe_inputs(moe_ops, moe, w, k=k, t=t, routing=routing, seed=i)
@@ -552,17 +628,26 @@ def read_ms(n_bytes, flush) -> float:
     return time_ms(lambda: buf.sum(dtype=torch.float32), flush)
 
 
-def time_moe(moe_ops, moe, weights) -> dict:
-    """Kernel, plain, library and bound at granite decode (T = 4, 4 slots
-    of 1 token, balanced and skewed) and prefill (T = 256, router), then
-    the kernel over T under balanced routing (the M_moe / tau staircase:
-    M_moe·E/k = 80 and tau = E = 40 for granite)."""
-    e, k, d, f = GRANITE_MOE
+GRANITE_TIMES = (("decode_balanced", 4, "balanced"),
+                 ("decode_skewed", 4, "skewed"),
+                 ("prefill_router", 256, "router"))
+# llada_mini_like's diffusion decode (4 rows x 16 positions) and prefill
+# (4 prompts of 48)
+LLADA_TIMES = (("decode_router", 64, "router"),
+               ("prefill_router", 192, "router"))
+
+
+def time_moe(moe_ops, moe, weights, shape=GRANITE_MOE, runs=GRANITE_TIMES,
+             staircase=True) -> dict:
+    """Kernel, plain, library and bound at each of ``runs`` (label, T,
+    routing) — by default granite decode (T = 4, 4 slots of 1 token,
+    balanced and skewed) and prefill (T = 256, router) — then, with
+    ``staircase``, the kernel over T under balanced routing (the M_moe /
+    tau staircase: M_moe·E/k = 80 and tau = E = 40 for granite)."""
+    e, k, d, f = shape
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     out = {}
-    for label, t, routing in (("decode_balanced", 4, "balanced"),
-                              ("decode_skewed", 4, "skewed"),
-                              ("prefill_router", 256, "router")):
+    for label, t, routing in runs:
         a = moe_inputs(moe_ops, moe, weights, k=k, t=t, routing=routing,
                        seed=5)
         lib, lib_name = grouped_mm_ffn(a["x_sorted"], weights, a["gs"])
@@ -575,7 +660,10 @@ def time_moe(moe_ops, moe, weights) -> dict:
             "read_ms": read_ms(sum(1 for g in a["gs"].tolist() if g)
                                * 3 * d * f * 2, flush),
             "bound_ms": bound, "bound_by": by, "token_block": a["tb"],
+            "T": t,
             "blocks": sum(-(-g // a["tb"]) for g in a["gs"].tolist())}
+    if not staircase:
+        return out
     stair = {}
     for t in (1, 2, 5, 10, 20, 40, 41, 80):
         a = moe_inputs(moe_ops, moe, weights, k=k, t=t, routing="balanced",
@@ -722,6 +810,8 @@ class RouteRecorder:
         self.saved = ()
 
     def __enter__(self):
+        self.inner = self.mod.route_topk       # whatever wraps it already
+
         def route(router_w, x, k):
             weights, idx, probs = self.inner(router_w, x, k)
             top = torch.topk(probs, k + 1, dim=-1).values
@@ -839,15 +929,25 @@ def record_gaps(loop):
     return rec
 
 
-def serve_run(mods, cfg, params, prompts, *, block_size, mode, card):
+def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
+              loop_kw=None, prepare=None, use_kernel=True):
+    """Serve ``prompts`` x 32 tokens on a 4-slot engine (paged with
+    ``block_size``) in ``mode`` (``loop_kw``: the ServingLoop's mode
+    arguments), counting every kernel's launches from 0; ``prepare(loop)``
+    attaches further recorders before the run; ``use_kernel`` False runs
+    the plain versions (and expects no launch).  Returns (streams,
+    launches, top-2 gap record, routing record)."""
     DecodeEngine, PagedKVConfig, ServingLoop, ops, moe_ops, moe, scan_ops = \
-        mods
+        mods[:7]
+    gc.collect()                  # loops of earlier runs hold their caches
     paged = PagedKVConfig(block_size=block_size) if block_size else None
     eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN, paged=paged,
-                       device="cuda")
-    loop = ServingLoop(eng, mode=mode)
+                       device="cuda", use_kernel=use_kernel)
+    loop = ServingLoop(eng, mode=mode, **(loop_kw or {}))
     rec = record_gaps(loop)
     recorder = RouteRecorder(moe, loop)
+    if prepare is not None:
+        prepare(loop)
     for p in prompts:
         loop.submit(p, 32)
     torch.cuda.synchronize()
@@ -876,8 +976,11 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card):
                 "scan": scan_ops.selective_scan_padded.launches}
     s = loop.stats()
     f32 = params["embed"]["table"].dtype == torch.float32
+    block = (loop_kw or {}).get("block_size")
     name = (f"{cfg.name}{' f32' if f32 else ''} "
-            f"{'paged' if block_size else 'dense'} {mode}")
+            f"{'paged' if block_size else 'dense'} {mode}"
+            f"{f' block {block}' if block else ''}"
+            f"{'' if use_kernel else ' (plain versions)'}")
     if s["requests"] != len(prompts) or any(
             len(t) != 32 for t in results.values()):
         raise AssertionError(f"{name}: not every request finished")
@@ -893,19 +996,30 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card):
             "paged": attn if block_size else 0,
             "moe": layers * every if is_moe else 0,
             "scan": layers * every if is_ssm else 0}
+    if not use_kernel:
+        want = dict.fromkeys(want, 0)
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches}, expected "
                              f"{want} ({layers} layers x {shaped} "
                              f"decode-shape forwards; MoE and scan: x "
                              f"{every} forwards)")
-    if is_moe and blocks_seen != {16, 64}:
+    # decode (T = 4) and the 4 x 64 prefill bucket's token blocks
+    want_blocks = {moe_ops.select_token_block(t, cfg.ffn.n_experts)
+                   for t in (4, 4 * 64)} if is_moe else set()
+    if is_moe and use_kernel and blocks_seen != want_blocks:
         raise AssertionError(f"{name}: MoE token blocks {sorted(blocks_seen)}"
-                             ", expected both 16 and 64")
+                             f", expected {sorted(want_blocks)}")
     if block_size and s["prefix_hits"] < 1:
         raise AssertionError(f"{name}: the shared prompt prefix never hit")
+    budgets = [e["budget"] for e in loop.step_log]
+    per_fwd = [e["positions"] for e in loop.step_log]
     print(f"serving {name}: {s['requests']} requests, {s['tokens']} tokens, "
           f"{s['forwards']} forwards (+{s['prefill_forwards']} prefill, "
-          f"{hit_forwards} of them prefix-hit), {dt:.3f} s wall, "
+          f"{hit_forwards} of them prefix-hit), "
+          f"{s['tokens_per_forward']:.3f} tok/fwd, positions/fwd "
+          f"{min(per_fwd)}..{max(per_fwd)} (mean "
+          f"{sum(per_fwd) / len(per_fwd):.1f}), budget "
+          f"{min(budgets)}..{max(budgets)}, {dt:.3f} s wall, "
           f"{s['tokens'] / dt:.1f} tok/s, launches {launches}"
           f"{', token blocks ' + str(sorted(blocks_seen)) if is_moe else ''}"
           f" [{card}]")
@@ -973,30 +1087,34 @@ def check_forward(mods, cfg, params, prompts, rtol, held=True) -> None:
 
 
 def profile_steps(mods, cfg, params, prompts, card,
-                  how="paged speculative") -> None:
-    """torch.profiler over 4 steady decode steps of paged speculative (or
-    dense greedy) serving: device busy share of the wall time and the top
-    kernels."""
+                  how="paged speculative", loop_kw=None, warm=2, steps=4,
+                  top=8, use_kernel=True) -> None:
+    """torch.profiler over ``steps`` steady decode steps (after ``warm``)
+    of 4-slot serving, ``how`` = "paged|dense <mode>": device busy share
+    of the wall time and the ``top`` kernels."""
     from torch.profiler import ProfilerActivity, profile
     DecodeEngine, PagedKVConfig, ServingLoop = mods[:3]
     paged = how.startswith("paged")
+    gc.collect()
     eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
                        paged=PagedKVConfig(block_size=16) if paged else None,
-                       device="cuda")
-    loop = ServingLoop(eng, mode=how.split()[1])
+                       device="cuda", use_kernel=use_kernel)
+    loop = ServingLoop(eng, mode=how.split()[1], **(loop_kw or {}))
     for p in prompts[:4]:
         loop.submit(p, 32)
     loop.admit()
-    for _ in range(2):
+    for _ in range(warm):
         loop.step()
     torch.cuda.synchronize()
+    mark = len(loop.step_log)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(4):
+        for _ in range(steps):
             loop.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    forwards = len(loop.step_log) - mark
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
@@ -1004,11 +1122,13 @@ def profile_steps(mods, cfg, params, prompts, card,
     if total == 0:
         print("profile: the profiler recorded no device time (not measured)")
         return
-    print(f"profile {cfg.name} (4 {how} steps, under the "
-          f"profiler): wall {wall_ms:.1f} ms, device busy {total:.2f} ms "
-          f"({100 * total / wall_ms:.1f}%), idle "
+    dtype = str(params["embed"]["table"].dtype).split(".")[1]
+    print(f"profile {cfg.name} {dtype}{'' if use_kernel else ' plain'} "
+          f"({steps} {how} steps, {forwards} "
+          f"forwards, under the profiler): wall {wall_ms:.1f} ms, device "
+          f"busy {total:.2f} ms ({100 * total / wall_ms:.1f}%), idle "
           f"{100 * (1 - total / wall_ms):.1f}% [{card}]")
-    for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:8]:
+    for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:8.3f} ms  {100 * ms / total:5.1f}%  {name[:90]}")
 
 
@@ -1136,6 +1256,413 @@ def serve_model(mods, arch, card, forward_rtol,
                         [rec], (routes, routes_dspec), plen, shared)
     check_forward(mods, cfg, params, prompts, forward_rtol)
     profile_steps(mods, cfg, params, prompts, card)
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: MTP and diffusion on the paper's two validation models
+# ---------------------------------------------------------------------------
+
+class DiffusionTrace:
+    """While a run serves, wraps ``serving.diffusion.pull_confidence`` (the
+    one host pull of every refinement forward) and, for an MoE model, the
+    port's ``route_topk``, to keep per refinement forward and row: the
+    confidences and tokens the selection read, each position's top-2
+    logit gap and (MoE) its smallest router margin over the layers, under
+    the key (request, committed context length) that ``keys()`` gives at
+    the time of the pull."""
+
+    def __init__(self, diff_mod, moe_mod, n_layers, keys):
+        self.diff, self.moe, self.layers, self.keys = (diff_mod, moe_mod,
+                                                       n_layers, keys)
+        self.trace = {}
+        self.margins = []
+
+    def __enter__(self):
+        inner_pull, inner_route = (self.diff.pull_confidence,
+                                   self.moe.route_topk)
+
+        def route(router_w, x, k):
+            weights, idx, probs = inner_route(router_w, x, k)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.margins.append(torch.log(top[:, k - 1] / top[:, k]))
+            return weights, idx, probs
+
+        def pull(logits):
+            conf, preds = inner_pull(logits)
+            rows = logits if logits.dim() == 3 else logits[None]
+            gap = top2_gap(rows).cpu().numpy()
+            margin = None
+            if self.margins:
+                m = torch.stack(self.margins[-self.layers:]).amin(0)
+                margin = m.reshape(rows.shape[:2]).cpu().numpy()
+            self.margins.clear()
+            conf2 = conf if conf.ndim == 2 else conf[None]
+            preds2 = preds if preds.ndim == 2 else preds[None]
+            for row, key in self.keys().items():
+                self.trace.setdefault(key, []).append(
+                    (conf2[row], preds2[row], gap[row],
+                     None if margin is None else margin[row]))
+            return conf, preds
+        self.saved = (inner_pull, inner_route)
+        self.diff.pull_confidence = pull
+        self.moe.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        self.diff.pull_confidence, self.moe.route_topk = self.saved
+
+
+def slot_kv(eng, slot, n):
+    """Slot ``slot``'s committed K and V, (layers, n, kv, dh) per
+    attention segment, read through its block table on a paged engine."""
+    out = []
+    for seg in eng.cache["segments"]:
+        for key in ("k", "v"):
+            leaf = seg[key]
+            if eng.manager is None:
+                out.append(leaf[:, slot, :n])
+                continue
+            pages = torch.as_tensor(
+                eng.manager.tables[slot][:-(-n // eng.manager.block_size)]
+                .astype(np.int64), device="cuda")
+            out.append(leaf[:, pages].flatten(1, 2)[:, :n])
+    return out
+
+
+def kv_rel_err(got, want) -> tuple:
+    """Largest per-position ||got - want|| / ||want|| over heads and head
+    dims, K and V together: over every layer, and over the first layer
+    alone (whose K/V come from the tokens before any routing decision)."""
+    def err(gs, ws):
+        num = sum((g.float() - w.float()).pow(2).sum((0, 2, 3))
+                  for g, w in zip(gs, ws))
+        den = sum(w.float().pow(2).sum((0, 2, 3)) for w in ws)
+        return float((num / den).sqrt().max())
+    return err(got, want), err([g[:1] for g in got[:2]],
+                               [w[:1] for w in want[:2]])
+
+
+class Uncounted:
+    """Launches made inside the block (reference forwards of a check) are
+    taken back out of every kernel's count."""
+
+    def __init__(self, mods):
+        ops, moe_ops, scan_ops = mods[3], mods[4], mods[6]
+        self.fns = (ops.decode_attention_ragged, ops.decode_attention_paged,
+                    moe_ops.grouped_ffn_padded,
+                    scan_ops.selective_scan_padded)
+
+    def __enter__(self):
+        self.saved = [fn.launches for fn in self.fns]
+
+    def __exit__(self, *exc):
+        for fn, n in zip(self.fns, self.saved):
+            fn.launches = n
+
+
+def check_committed_kv(mods, cfg, params, errs, use_kernel=True):
+    """A ``prepare`` hook for ``serve_run``: before a finished request's
+    slot is released, its committed K/V (the whole context: the prompt's
+    prefill, then every commit forward) is held against a batch-1 prefill
+    of the same context; the per-position relative error goes to
+    ``errs``."""
+    DecodeEngine = mods[0]
+    ref = DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN, device="cuda",
+                       use_kernel=use_kernel)
+
+    def prepare(loop):
+        eng = loop.engine
+        inner = eng.release_slot
+
+        def release_slot(slot):
+            req = list(loop.finished.values())[-1]
+            ctx = req.context
+            n = int(eng.slot_lens_host[slot])
+            if req.slot != slot or n != len(ctx):
+                raise AssertionError(f"slot {slot}: committed length {n}, "
+                                     f"context {len(ctx)}")
+            with Uncounted(mods):
+                ref.prefill(torch.as_tensor(ctx[None], device="cuda"))
+            errs.append(kv_rel_err(slot_kv(eng, slot, n),
+                                   slot_kv(ref, 0, n)))
+            inner(slot)
+        eng.release_slot = release_slot
+    return prepare
+
+
+def solo_diffusion(mods, cfg, params, prompts, block, card,
+                   use_kernel=True):
+    """Every prompt through a batch-1 ``DiffusionBlockDecoder`` at
+    ``block`` (the dense kernel path, or the plain versions), recording
+    its refinement forwards.  Returns ({rid: tokens}, trace)."""
+    DecodeEngine, ops, moe, diff_mod = mods[0], mods[3], mods[5], mods[7]
+    eng = DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN, device="cuda",
+                       use_kernel=use_kernel)
+    cur = {}
+    trace = DiffusionTrace(diff_mod, moe, cfg.n_layers,
+                           lambda: {0: (cur["rid"], eng.cache_len)})
+    ops.decode_attention_ragged.launches = 0
+    streams, forwards = {}, 0
+    t0 = time.perf_counter()
+    with trace:
+        for rid, p in enumerate(prompts):
+            cur["rid"] = rid
+            dec = diff_mod.DiffusionBlockDecoder(eng, block_size=block)
+            streams[rid], st = dec.generate(p[None], 32)
+            forwards += st["forwards"]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    got = ops.decode_attention_ragged.launches
+    if got != cfg.n_layers * forwards * use_kernel:
+        raise AssertionError(f"solo diffusion: {got} decode-attention "
+                             f"launches, expected {cfg.n_layers} x "
+                             f"{forwards}")
+    print(f"solo DiffusionBlockDecoder {cfg.name} "
+          f"{str(params['embed']['table'].dtype).split('.')[1]} block "
+          f"{block}: {len(prompts)} requests, {forwards} forwards in "
+          f"{dt:.3f} s, launches {got} [{card}]")
+    return streams, trace.trace
+
+
+def replay_block(forwards, n, refine_block):
+    """Re-run the selection of one block (``refine_steps`` 4, the serving
+    default) from its recorded refinement forwards; returns per iteration
+    (positions picked, their tokens, the forward's record)."""
+    block = np.full(n, -1, np.int64)
+    resolved = np.zeros(n, bool)
+    per_iter = max(1, -(-n // 4))
+    picks = []
+    for rec in forwards:
+        if resolved.all():
+            break
+        before = resolved.copy()
+        refine_block(block, resolved, rec[0], rec[1], per_iter)
+        new = np.nonzero(resolved & ~before)[0]
+        picks.append((new, block[new].copy(), rec))
+    return picks
+
+
+def compare_diffusion(name, batched, solo, trace_a, trace_b, prompt_len,
+                      block, refine, f32, held) -> int:
+    """Batched diffusion streams against the solo driver's at the same
+    block, request by request.  Where one parts, its blocks are replayed
+    from both traces up to the first refinement forward whose picks
+    differ, and the parting must be a near-tie there: two positions whose
+    confidence margins in the two runs sum to <= the confidence tolerance
+    (relative), or a picked token whose top-2 gaps are <= the gap
+    tolerance, or (MoE) a router margin <= the router tolerance in that
+    forward.  Printed per parting; held with ``held``."""
+    conf_tol = CONF_RTOL_F32 if f32 else CONF_RTOL_BF16
+    gap_tol = GAP_TOL_F32 if f32 else GAP_TOL
+    router_tol = ROUTER_TOL_F32 if f32 else ROUTER_TOL
+    full, bad = 0, []
+    for rid, want in solo.items():
+        got = batched[rid]
+        if np.array_equal(got, want):
+            full += 1
+            continue
+        ctx, gen, why = prompt_len, 1, None
+        while gen < 32 and why is None:
+            n = min(block, 32 - gen)
+            pa = replay_block(trace_a.get((rid, ctx), []), n, refine)
+            pb = replay_block(trace_b.get((rid, ctx), []), n, refine)
+            for it, ((xa, ta, ra), (xb, tb, rb)) in enumerate(zip(pa, pb)):
+                if np.array_equal(xa, xb) and np.array_equal(ta, tb):
+                    continue
+                tie, what = None, ""
+                if np.array_equal(xa, xb):
+                    p = int(xa[np.nonzero(ta != tb)[0][0]])
+                    g = max(float(ra[2][p]), float(rb[2][p]))
+                    tie = g <= gap_tol
+                    what = f"token at block position {p}, top-2 gaps {g:.3g}"
+                else:
+                    rel = min(
+                        ((ra[0][x] - ra[0][y]) + (rb[0][y] - rb[0][x]))
+                        / ra[0][x]
+                        for x in np.setdiff1d(xa, xb)
+                        for y in np.setdiff1d(xb, xa))
+                    tie = rel <= conf_tol
+                    what = f"positions, confidence margins {rel:.3g} relative"
+                if not tie and ra[3] is not None:
+                    m = min(float(ra[3].min()), float(rb[3].min()))
+                    what += f", smallest router margin {m:.3g}"
+                    tie = m <= router_tol
+                why = (f"block at context {ctx} iteration {it}: {what}", tie)
+                break
+            else:
+                if len(pa) != len(pb) or not pa:
+                    why = (f"block at context {ctx}: no record", False)
+            ctx, gen = ctx + n, gen + n
+        if why is None:
+            why = ("no differing pick found", False)
+        d = int(np.nonzero(got != want)[0][0])
+        print(f"  request {rid}: {name} leaves the solo driver at token {d}:"
+              f" {why[0]} ({'near-tie' if why[1] else 'NOT a near-tie'})")
+        if not why[1]:
+            bad.append(f"request {rid} at token {d}")
+    rule = (f"confidence margins <= {conf_tol:.3g}, top-2 gaps <= "
+            f"{gap_tol:.3g}, router margins <= {router_tol:.3g}")
+    if bad and held:
+        raise AssertionError(f"{name}: {', '.join(bad)} parted from the solo "
+                             f"driver beyond the near-tie rule ({rule})")
+    print(f"{name} vs solo DiffusionBlockDecoder block {block}: "
+          f"{full}/{len(solo)} streams match in full ({rule}; "
+          f"{'held' if held else 'printed, not held'}"
+          f"{f', {len(bad)} beyond the rule' if bad else ''})")
+    return full
+
+
+def diffusion_run(mods, cfg, params, prompts, card, *, block_size, block,
+                  solo_cache):
+    """One diffusion serving run (``block`` None: the budget's width),
+    with the committed-K/V check on every slot and the refinement trace;
+    then the comparison with the solo driver at the run's block (solo
+    streams cached per block in ``solo_cache``), held in float32.  The
+    kernels take bf16 only, so a float32 model runs the plain versions.
+    Returns the launches."""
+    f32 = params["embed"]["table"].dtype == torch.float32
+    errs, holder = [], {}
+    kv_hook = check_committed_kv(mods, cfg, params, errs, use_kernel=not f32)
+
+    def prepare(loop):
+        kv_hook(loop)
+        eng = loop.engine
+        holder["loop"] = loop
+        inner_width = loop.adapter.width
+        widths = holder["widths"] = set()
+
+        def width(n_active, budget):
+            w = inner_width(n_active, budget)
+            widths.add(w)
+            return w
+        loop.adapter.width = width
+        holder["trace"] = DiffusionTrace(
+            mods[7], mods[5], cfg.n_layers,
+            lambda: {s: (r.rid, int(eng.slot_lens_host[s]))
+                     for s, r in loop.active.items()})
+        holder["trace"].__enter__()
+    try:
+        streams, launches, _, _ = serve_run(
+            mods, cfg, params, prompts, block_size=block_size,
+            mode="diffusion", card=card,
+            loop_kw={"block_size": block} if block else None,
+            prepare=prepare, use_kernel=not f32)
+    finally:
+        if "trace" in holder:
+            holder["trace"].__exit__()
+    loop = holder["loop"]
+    name = (f"{cfg.name}{' f32' if f32 else ''} "
+            f"{'paged' if block_size else 'dense'} diffusion")
+    tpf = loop.stats()["tokens_per_forward"]
+    if tpf <= 1.0:
+        raise AssertionError(f"{name}: {tpf:.3f} tokens per forward")
+    tol = KV_RTOL[params["embed"]["table"].dtype]
+    deep, first = (max(e[i] for e in errs) for i in (0, 1))
+    is_moe = cfg.ffn.kind == "moe"
+    held = first if is_moe else deep
+    print(f"{name}: committed K/V of {len(errs)} slots vs a prefill of their "
+          f"streams, largest per-position relative error {deep:.3g} over "
+          f"all layers{' (printed: routing flips)' if is_moe else ''}, "
+          f"{first:.3g} at the first layer (limit {tol})")
+    if len(errs) != len(prompts) or held > tol:
+        raise AssertionError(f"{name}: committed K/V leave a prefill of the "
+                             f"stream: {errs}")
+    # the block each step asked for (a request's last block is clipped to
+    # its remaining tokens, in both drivers alike)
+    widths = sorted(holder["widths"])
+    print(f"{name}: blocks {widths} (budget {loop.step_log[0]['budget']} "
+          f"over {loop.step_log[0]['active']} rows)")
+    if len(widths) != 1:
+        print(f"{name}: no single block to hold against the solo driver")
+        return launches
+    solo_block = widths[0]
+    if solo_block not in solo_cache:
+        solo_cache[solo_block] = solo_diffusion(mods, cfg, params, prompts,
+                                                solo_block, card,
+                                                use_kernel=not f32)
+    solo, trace_b = solo_cache[solo_block]
+    compare_diffusion(name, streams, solo, holder["trace"].trace, trace_b,
+                      len(prompts[0]), solo_block,
+                      mods[7].refine_block, f32, held=f32)
+    return launches
+
+
+def serve_parallel(mods, arch, card, forward_rtol, dense_block=None,
+                   f32_layers=None) -> dict:
+    """Phase 4 for a parallel-decoding validation model: paged greedy,
+    paged MTP (held against greedy), paged diffusion at the budget's
+    width and, with ``dense_block``, dense diffusion at that block; the
+    full-size forward check; a profile of each run's steady steps.  Then
+    the same weights in float32 (at ``f32_layers`` layers where given)
+    serve the diffusion runs again through the plain versions (the
+    kernels take bf16 only), where the solo comparison is held.
+    Returns the launches by run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serving import init_mtp_heads
+    cfg = get_config(arch)
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    heads = init_mtp_heads(torch.Generator(device="cuda").manual_seed(5),
+                           cfg.d_model, cfg.vocab_size, 4)
+    print(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+          f"{n_params:.4g} parameters, {2 * n_params / 1e9:.4g} GB in bf16; "
+          f"MTP bank {tuple(heads['heads'].shape)}, "
+          f"{2 * heads['heads'].numel() / 1e9:.4g} GB in bf16")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=48) for _ in range(8)]
+    prompts[5][:32] = prompts[0][:32]          # admitted later: prefix hit
+    plen, shared = len(prompts[0]), {5: (0, 32)}
+    serve_run(mods, cfg, params, prompts[:1], block_size=0,
+              mode="greedy", card=card)        # warm-up
+    greedy, l1, rec, routes = serve_run(mods, cfg, params, prompts,
+                                        block_size=16, mode="greedy",
+                                        card=card)
+    mtp_kw = {"mtp_heads": heads}
+    mtp, l2, _, routes_mtp = serve_run(mods, cfg, params, prompts,
+                                       block_size=16, mode="mtp", card=card,
+                                       loop_kw=mtp_kw)
+    compare_streams(f"{cfg.name} paged mtp", greedy, mtp, [rec],
+                    (routes, routes_mtp), plen, shared)
+    runs = {"paged_greedy": l1, "paged_mtp": l2}
+    solo = {}
+    runs["paged_diffusion"] = diffusion_run(
+        mods, cfg, params, prompts, card, block_size=16, block=None,
+        solo_cache=solo)
+    profiles = [("paged greedy", None, 2, 4), ("paged mtp", mtp_kw, 2, 4),
+                ("paged diffusion", None, 0, 2)]
+    if dense_block:
+        runs["dense_diffusion"] = diffusion_run(
+            mods, cfg, params, prompts, card, block_size=0,
+            block=dense_block, solo_cache=solo)
+        profiles.append(("dense diffusion", {"block_size": dense_block},
+                         0, 2))
+    check_forward(mods, cfg, params, prompts, forward_rtol)
+    for how, kw, warm, steps in profiles:
+        profile_steps(mods, cfg, params, prompts, card, how=how, loop_kw=kw,
+                      warm=warm, steps=steps, top=4)
+    del params, heads, solo, mtp_kw, profiles
+    gc.collect()
+    torch.cuda.empty_cache()
+    if f32_layers:
+        cfg = dataclasses.replace(cfg, n_layers=f32_layers)
+        print(f"{cfg.name} f32: cut to {f32_layers} of "
+              f"{get_config(arch).n_layers} layers at full width (float32 "
+              "at full depth does not fit the card)")
+    params32 = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                          "cuda", dtype=torch.float32)
+    solo = {}
+    runs["paged_diffusion_f32"] = diffusion_run(
+        mods, cfg, params32, prompts, card, block_size=16, block=None,
+        solo_cache=solo)
+    if dense_block:
+        runs["dense_diffusion_f32"] = diffusion_run(
+            mods, cfg, params32, prompts, card, block_size=0,
+            block=dense_block, solo_cache=solo)
+    profile_steps(mods, cfg, params32, prompts, card, how="paged diffusion",
+                  warm=0, steps=2, top=4, use_kernel=False)
     return runs
 
 
@@ -1322,6 +1849,15 @@ def main() -> int:
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
                   f"executed-tile bound {r['tile_bound_ms']:.5f} ms "
                   f"[{card}]")
+    wedlm = {"shape": (32, 8, 128), "lens": (48, 64, 96, 112)}
+    times_wedlm = {n: time_kernels(ops, n, **wedlm) for n in (1, 16, 17)}
+    for n, t in times_wedlm.items():
+        for mode, r in t.items():
+            print(f"  {mode} n={n} wedlm8b_like (h 32, kv 8, dh 128, lens "
+                  f"{list(wedlm['lens'])}): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
+                  f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
+                  f"executed-tile bound {r['tile_bound_ms']:.5f} ms [{card}]")
     moe_err = check_moe(moe_ops, moe)
     e, _, d, f = GRANITE_MOE
     moe_times = time_moe(moe_ops, moe, moe_weights(e, d, f, seed=4))
@@ -1334,6 +1870,18 @@ def main() -> int:
               f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
               f"({r['bound_by']}), a torch sum over the active experts' "
               f"weight bytes {r['read_ms']:.4f} ms [{card}]")
+    e, k, d, f = LLADA_MOE
+    llada_times = time_moe(moe_ops, moe, moe_weights(e, d, f, seed=8),
+                           shape=LLADA_MOE, runs=LLADA_TIMES,
+                           staircase=False)
+    for label, r in llada_times.items():
+        print(f"  moe llada_mini_like {label} (T {r['T']}, token_block "
+              f"{r['token_block']}, {r['blocks']} blocks): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"{r['library']} {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), a torch sum over "
+              f"the active experts' weight bytes {r['read_ms']:.4f} ms "
+              f"[{card}]")
     print("  moe staircase (balanced routing; T: kernel ms, token block, "
           "blocks): " + ", ".join(
               f"{t}: {ms:.4f} ({tb}, {nb})"
@@ -1355,17 +1903,25 @@ def main() -> int:
 
     # 4. serving
     from repro_torch.serving import DecodeEngine, PagedKVConfig, ServingLoop
+    from repro_torch.serving import diffusion as diff_mod
     mods = (DecodeEngine, PagedKVConfig, ServingLoop, ops, moe_ops, moe,
-            scan_ops)
+            scan_ops, diff_mod)
     runs = {}
     for arch, serve, rtol in (
             ("stablelm_3b", functools.partial(serve_model,
                                               dense_speculative=True),
              FORWARD_RTOL),
             ("granite_moe_3b_a800m", serve_model, MOE_FORWARD_RTOL),
-            ("falcon_mamba_7b", serve_ssm, SSM_FORWARD_RTOL)):
+            ("falcon_mamba_7b", serve_ssm, SSM_FORWARD_RTOL),
+            ("wedlm8b_like", functools.partial(serve_parallel,
+                                               dense_block=16),
+             FORWARD_RTOL),
+            ("llada_mini_like", functools.partial(
+                serve_parallel, f32_layers=LLADA_F32_LAYERS),
+             MOE_FORWARD_RTOL)):
         for run, launches in serve(mods, arch, card, rtol).items():
             runs[f"{arch.split('_')[0]}_{run}"] = launches
+        gc.collect()
         torch.cuda.empty_cache()
 
     # 5. report
@@ -1385,6 +1941,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "n16": {key: times[16][mode][key] for key in keys},
+            "wedlm_n17": {key: times_wedlm[17][mode][key] for key in keys},
             "launch_floor_ms": floor})
     r = moe_times["decode_balanced"]
     kernels.append({
@@ -1400,6 +1957,10 @@ def main() -> int:
         "prefill": {key: moe_times["prefill_router"][key] for key in keys},
         "decode_skewed": {key: moe_times["decode_skewed"][key]
                           for key in keys},
+        "llada_decode_T64": {key: llada_times["decode_router"][key]
+                             for key in keys},
+        "llada_prefill_T192": {key: llada_times["prefill_router"][key]
+                               for key in keys},
         "staircase_ms": {t: ms for t, (ms, _, _) in
                          moe_times["staircase"].items()}})
     kernels.append({

@@ -10,7 +10,7 @@ import importlib
 from repro_torch.core.arch import ArchConfig
 
 ARCH_IDS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m",
-            "falcon_mamba_7b"]
+            "llada_mini_like", "falcon_mamba_7b"]
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:

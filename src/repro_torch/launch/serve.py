@@ -1,22 +1,31 @@
-"""Multi-request serving launcher: budget-aware continuous batching.
+"""Serving launcher: budget-aware continuous batching, or one request
+through a parallel-decoding driver.
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b \
       --requests 8 --slots 4 --serve-mode speculative --kv-block-size 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch wedlm8b_like \
+      --requests 8 --slots 4 --serve-mode diffusion --block-size 16
 
 On the CPU, at the reduced size (the kernels' plain versions):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch granite_moe_3b_a800m --tiny --requests 6 --slots 2 \
       --serve-mode speculative --kv-block-size 16 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch llada_mini_like --tiny --requests 6 --slots 2 \
+      --serve-mode diffusion --kv-block-size 16 --tokens 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch falcon_mamba_7b --tiny --serve-mode greedy
+One request through a single-request driver (batch 1, dense cache):
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch wedlm8b_like --tiny --algorithm diffusion --tokens 24
 
 An SSM model (falcon_mamba_7b) serves greedy on the dense cache only:
-``--kv-block-size`` and ``--serve-mode speculative`` are refused.
+``--kv-block-size`` and every other serve mode are refused.
 
-Weights are random, drawn from ``--seed``; prompts come from a numpy
-generator with the same seed.  The ServingLoop splits the NFP budget of
-the H100 spec across the concurrent requests.
+Weights (and the 4-head MTP bank) are random, drawn from ``--seed``;
+prompts come from a numpy generator with the same seed.  The NFP budget
+of the H100 spec sizes every forward.
 """
 from __future__ import annotations
 
@@ -32,7 +41,50 @@ from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_ffn import ops as moe_ops
 from repro_torch.models import init_model
-from repro_torch.serving import DecodeEngine, PagedKVConfig, ServingLoop
+from repro_torch.serving import (DecodeEngine, DiffusionBlockDecoder,
+                                 MTPDecoder, PagedKVConfig, ServingLoop,
+                                 SpeculativeDecoder, init_mtp_heads)
+
+MODES = ["greedy", "speculative", "diffusion", "mtp"]
+MTP_HEADS = 4
+
+
+def _heads(args, cfg, device):
+    gen = torch.Generator(device=device).manual_seed(args.seed + 5)
+    return init_mtp_heads(gen, cfg.d_model, cfg.vocab_size, MTP_HEADS)
+
+
+def single_request(args, cfg, params, device) -> None:
+    """One request through the ``--algorithm`` driver on a batch-1 dense
+    engine."""
+    eng = DecodeEngine(cfg, params, batch=1, max_len=args.max_len,
+                       device=device)
+    prompt = np.random.default_rng(args.seed).integers(
+        0, cfg.vocab_size, size=(1, args.prompt_len))
+    t0 = time.perf_counter()
+    if args.algorithm == "greedy":
+        out = eng.greedy_generate(torch.as_tensor(prompt, device=device),
+                                  args.tokens)[0].cpu().numpy()
+        stats = {"tokens": args.tokens, "forwards": args.tokens,
+                 "tokens_per_forward": 1.0}
+    else:
+        if args.algorithm == "speculative":
+            dec = SpeculativeDecoder(eng)
+        elif args.algorithm == "mtp":
+            dec = MTPDecoder(eng, _heads(args, cfg, device))
+        else:
+            dec = DiffusionBlockDecoder(eng, block_size=args.block_size,
+                                        refine_steps=args.refine_steps)
+        out, stats = dec.generate(prompt, args.tokens)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    print(f"arch={cfg.name} algorithm={args.algorithm} device={device.type} "
+          f"kernel={eng.use_kernel} nfp_budget={eng.nfp_budget()}")
+    print(f"generated {stats['tokens']} tokens in {dt:.3f}s "
+          f"({stats['forwards']} forwards, "
+          f"{stats['tokens_per_forward']:.2f} tok/fwd)")
+    print("tokens:", out[:32], "...")
 
 
 def serve(args) -> None:
@@ -40,13 +92,20 @@ def serve(args) -> None:
     cfg = get_config(args.arch, reduced=args.tiny)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_model(cfg, gen, device)
+    if args.algorithm is not None:
+        single_request(args, cfg, params, device)
+        return
     paged = None
     if args.kv_block_size > 0:
         paged = PagedKVConfig(block_size=args.kv_block_size,
                               n_blocks=args.kv_blocks or None)
     eng = DecodeEngine(cfg, params, batch=args.slots, max_len=args.max_len,
                        paged=paged, device=device)
-    loop = ServingLoop(eng, mode=args.serve_mode)
+    loop = ServingLoop(
+        eng, mode=args.serve_mode, block_size=args.block_size,
+        refine_steps=args.refine_steps,
+        mtp_heads=(_heads(args, cfg, device) if args.serve_mode == "mtp"
+                   else None))
     rng = np.random.default_rng(args.seed)
     for _ in range(args.requests):
         loop.submit(rng.integers(0, cfg.vocab_size, size=args.prompt_len),
@@ -96,8 +155,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4,
                     help="cache slots (max concurrent requests)")
-    ap.add_argument("--serve-mode", default="greedy",
-                    choices=["greedy", "speculative"])
+    ap.add_argument("--serve-mode", default="greedy", choices=MODES)
+    ap.add_argument("--algorithm", default=None, choices=MODES,
+                    help="serve ONE request through this single-request "
+                         "driver (batch 1, dense cache) instead of the "
+                         "scheduler; --requests and --slots are ignored")
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="diffusion block size (default: the NFP budget)")
+    ap.add_argument("--refine-steps", type=int, default=4,
+                    help="diffusion refinement forwards per block")
     ap.add_argument("--tokens", type=int, default=32)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=256)
@@ -115,6 +181,9 @@ def main() -> None:
     args = ap.parse_args()
     if args.kv_blocks > 0 and args.kv_block_size <= 0:
         ap.error("--kv-blocks sizes the paged pool; add --kv-block-size")
+    if args.algorithm is not None and args.kv_block_size > 0:
+        ap.error("--algorithm drives a batch-1 dense engine; drop "
+                 "--kv-block-size")
     serve(args)
 
 

@@ -1,21 +1,145 @@
-"""The scheduler-side propose -> verify -> commit protocol.
+"""The propose -> verify -> commit protocol shared by every parallel-
+decoding family (speculative verification, MTP heads, diffusion block
+refinement), at both serving granularities:
 
-``SlotAdapter`` is driven ROW-WISE by ``ServingLoop``: every active
-request fills its slot's row of ONE shared multi-position forward per
-step, and the NFP budget is split across the rows.  The base class is
-the greedy shape; ``speculative.SpeculativeSlotAdapter`` adds n-gram
-drafts.  Greedy prefix acceptance keeps every stream identical to solo
-greedy decoding.
+  ``ParallelDecodeAlgorithm``  the batch-1 driver: one request owns the
+                               engine (and the whole NFP budget).
+  ``SlotAdapter``              driven ROW-WISE by ``ServingLoop``: every
+                               active request fills its slot's row of ONE
+                               shared multi-position forward per step, and
+                               the NFP budget is split across the rows.
+
+The base classes are the greedy shape; ``speculative``, ``mtp`` and
+``diffusion`` subclass them.  Greedy prefix acceptance keeps every
+greedy, speculative and MTP stream identical to solo greedy decoding.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
-from repro_torch.serving.engine import greedy_tokens
+from repro_torch.serving.engine import DecodeEngine, greedy_tokens
 
-__all__ = ["SlotAdapter"]
+__all__ = ["DecodeStats", "ParallelDecodeAlgorithm", "SlotAdapter"]
+
+
+@dataclass
+class DecodeStats:
+    """Position/forward accounting — the quantities NFP normalizes
+    (paper Sec. J.2.3)."""
+
+    tokens: int = 0
+    forwards: int = 0
+    positions: int = 0
+
+    @property
+    def tokens_per_forward(self) -> float:
+        return self.tokens / max(self.forwards, 1)
+
+    @property
+    def position_utilization(self) -> float:
+        return self.tokens / max(self.positions, 1)
+
+    def as_dict(self) -> Dict:
+        return {
+            "tokens": self.tokens,
+            "forwards": self.forwards,
+            "positions": self.positions,
+            "tokens_per_forward": self.tokens_per_forward,
+            "position_utilization": self.position_utilization,
+        }
+
+
+@dataclass
+class ParallelDecodeAlgorithm:
+    """Propose -> verify -> commit driver over one dense DecodeEngine.
+
+    Subclass protocol:
+      parallel_width()         block width for the next step; the default
+                               spends the engine's NFP budget (one
+                               position is the pending token's).
+      propose(ctx, pending, n) length-n candidate block (np.int64).
+      resolve(pending, drafts) verify + commit; returns (the committed
+                               tokens after ``pending``, the next pending
+                               token).  Default: one multi-position
+                               forward with greedy prefix acceptance.
+      begin(prompt, pending)   after the prefill.
+      observe(hidden, k)       the verify forward's final-norm hidden
+                               states (1, n, d) and the accepted index k
+                               whose logits gave the next pending token.
+    """
+
+    engine: DecodeEngine
+
+    def __post_init__(self):
+        self.stats = DecodeStats()
+
+    # -- protocol ------------------------------------------------------
+    def parallel_width(self) -> int:
+        return max(1, self.engine.nfp_budget() - 1)
+
+    def begin(self, prompt: np.ndarray, pending: int) -> None:
+        pass
+
+    def observe(self, hidden, k: int) -> None:
+        pass
+
+    def propose(self, context: np.ndarray, pending: int,
+                n: int) -> np.ndarray:
+        raise NotImplementedError
+
+    def resolve(self, pending: int, drafts: np.ndarray
+                ) -> Tuple[List[int], int]:
+        """Greedy verification: accept the longest draft prefix the model
+        reproduces, plus the model's own next token."""
+        block = np.concatenate([[pending], drafts]).astype(np.int64)
+        logits, new_cache, hidden = self.forward_block(block)
+        # winners on the device; only the (n,) int32 block crosses
+        preds = greedy_tokens(logits[0]).cpu().numpy()  # analysis: allow-host-sync
+        k = 0
+        while k < len(drafts) and preds[k] == drafts[k]:
+            k += 1
+        self.engine.commit(new_cache, 1 + k)
+        self.observe(hidden, k)
+        return list(drafts[:k]), int(preds[k])
+
+    # -- shared machinery ----------------------------------------------
+    def forward_block(self, block: np.ndarray):
+        """One multi-position decode forward over ``block`` (every batch
+        row), committing nothing; counts forwards and positions.  Returns
+        (logits, new_cache, hidden)."""
+        eng = self.engine
+        toks = eng._tokens(block)[None].expand(eng.batch, len(block))
+        logits, new_cache, hidden = eng.peek_step(toks)
+        self.stats.forwards += 1
+        self.stats.positions += len(block)
+        return logits, new_cache, hidden
+
+    def generate(self, prompt, max_tokens: int) -> Tuple[np.ndarray, Dict]:
+        """Generate ``max_tokens`` for ``prompt`` ((1, p) or (b, p) tokens,
+        every row the same request).  Returns (tokens, stats)."""
+        eng = self.engine
+        self.stats = DecodeStats()
+        prompt = (prompt.to(eng.device) if isinstance(prompt, torch.Tensor)
+                  else eng._tokens(prompt))
+        logits = eng.prefill(prompt)
+        pending = int(torch.argmax(logits[0]))
+        context = prompt[0].cpu().numpy().astype(np.int64)
+        generated: List[int] = [pending]
+        self.begin(prompt.cpu().numpy(), pending)
+        while len(generated) < max_tokens:
+            n = min(self.parallel_width(), max_tokens - len(generated))
+            drafts = self.propose(context, pending, n)
+            committed, next_pending = self.resolve(pending, drafts)
+            context = np.concatenate(
+                [context, [pending], committed]).astype(np.int64)
+            generated.extend(list(committed) + [next_pending])
+            pending = next_pending
+        self.stats.tokens = len(generated)
+        return np.asarray(generated[:max_tokens]), self.stats.as_dict()
 
 
 class SlotAdapter:
@@ -25,11 +149,16 @@ class SlotAdapter:
       width(n_active, budget)  per-request block width for this step.
       headroom()               cache positions a slot needs beyond
                                prompt + max_tokens (admission check).
-      begin(req, hidden)       after the request's slot is prefilled.
+      begin(req, hidden)       after the request's slot is prefilled;
+                               ``hidden`` is the (d,) final-norm state of
+                               its last prompt position.
       propose(req, n)          length-<=n draft block for one row.
-      observe(req, k, hidden)  after acceptance (k = accepted index).
+      propose_rows(want)       drafts for many rows in one dispatch.
+      observe(req, k, hidden)  after acceptance: k = accepted index,
+                               ``hidden`` the row's (n, d) states.
       run_step(slots, width, budget)
-                               the whole verify/commit drive.
+                               the whole verify/commit drive; diffusion
+                               overrides it (several shared forwards).
     """
 
     mode = "greedy"

@@ -4,7 +4,9 @@ The engine executes the paper's abstraction directly: a decode forward
 that processes N positions (Eq. 2) over a pre-allocated cache, in the
 single-request mode (``prefill`` / ``decode_step``) or the scheduler's
 slotted mode (``prefill_slots`` / ``decode_slots`` / ``commit_slots``),
-over a dense per-slot cache or a paged block pool.  The NFP budget
+over a dense per-slot cache or a paged block pool; ``peek_step`` /
+``commit`` split a single-request forward from its commit for the
+parallel-decoding drivers.  The NFP budget
 (``core.nfp.parallelism_budget``) sizes the positions per forward.
 
 KV writes are IN PLACE (the reference returns a new cache and commits
@@ -90,6 +92,9 @@ class DecodeEngine:
     # committed positions of the single-request drivers: a HOST int, read
     # by every step's budget decision without touching the device
     cache_len: int = field(init=False, default=0)
+    # (b, d) final-norm hidden state of the last prompt position of the
+    # last ``prefill`` (MTP proposes from it)
+    last_hidden: Optional[Tensor] = field(init=False, default=None)
 
     def __post_init__(self):
         check_ported(self.cfg)
@@ -127,6 +132,7 @@ class DecodeEngine:
                                      device=self.device)
         self.slot_lens_host = np.zeros((self.batch,), np.int64)
         self._bt_device: Optional[Tensor] = None
+        self._peeked = 0                       # positions of the last peek
         self.prefill_log: List[Dict] = []
 
     def _require_dense(self, what: str) -> None:
@@ -143,7 +149,7 @@ class DecodeEngine:
         return self._bt_device
 
     def _tokens(self, toks) -> Tensor:
-        return torch.as_tensor(np.asarray(toks), dtype=torch.long,
+        return torch.as_tensor(np.array(toks, np.int64),
                                device=self.device)
 
     # ------------------------------------------------------------------
@@ -161,12 +167,14 @@ class DecodeEngine:
     # single-request mode (aligned rows, dense cache)
     # ------------------------------------------------------------------
     def prefill(self, tokens: Tensor) -> Tensor:
-        """tokens: (b, prompt_len).  Returns last-position logits."""
+        """tokens: (b, prompt_len).  Returns last-position logits and keeps
+        the last position's final-norm hidden state in ``last_hidden``."""
         self._require_dense("prefill")
-        logits, self.cache, _, _ = forward(
+        logits, self.cache, _, hidden = forward(
             self.params, self.cfg, {"tokens": tokens}, mode="prefill",
             cache=self.cache, use_kernel=self.use_kernel)
         self.cache_len = int(tokens.shape[1])
+        self.last_hidden = hidden[:, -1]
         return logits[:, -1]
 
     def decode_step(self, tokens: Tensor, advance: Optional[int] = None
@@ -191,6 +199,36 @@ class DecodeEngine:
             self.cache = new_cache
         self.cache_len += adv
         return logits
+
+    def peek_step(self, tokens: Tensor) -> Tuple[Tensor, Dict, Tensor]:
+        """A decode forward that commits nothing (verification and
+        refinement forwards): K/V of the N positions land in the cache in
+        place from ``cache_len`` on, where the mask hides them until
+        ``commit`` advances over them or a later forward overwrites them;
+        SSM states come back new.  Returns (logits, new_cache, hidden)."""
+        self._require_dense("peek_step")
+        logits, new_cache, _, hidden = forward(
+            self.params, self.cfg, {"tokens": tokens}, mode="decode",
+            cache=self.cache, cache_len=self.cache_len,
+            use_kernel=self.use_kernel)
+        self._peeked = tokens.shape[1]
+        return logits, new_cache, hidden
+
+    def commit(self, new_cache: Dict, n_accepted: int) -> None:
+        """Advance over the first ``n_accepted`` positions of the last
+        ``peek_step``.  Their K/V are in the cache already; a recurrent
+        state is adopted only after all of the peeked positions (its state
+        after a part of them is not kept, so a partial commit raises)."""
+        self._require_dense("commit")
+        n = int(n_accepted)
+        if self.recurrent and n not in (0, self._peeked):
+            raise ValueError(
+                f"{self.cfg.name}: committing {n} of {self._peeked} "
+                "positions needs the recurrent state after each position, "
+                "which is not kept")
+        if n > 0:
+            self.cache = new_cache
+        self.cache_len += n
 
     def greedy_generate(self, prompt: Tensor, steps: int) -> Tensor:
         """Plain autoregressive baseline (N=1 per forward) — the
@@ -357,6 +395,10 @@ class DecodeEngine:
         for s in sorted(toks):
             mgr.register_prompt(s, toks[s].tolist())
         return out
+
+    def prefill_slot(self, slot: int, prompt: np.ndarray) -> Tensor:
+        """Prefill ONE cache slot; returns its last-position logits."""
+        return self.prefill_slots({slot: prompt})[slot][0]
 
     def decode_slots(self, tokens: Tensor) -> Tuple[Tensor, Dict, Tensor]:
         """Multi-position decode forward over ALL slots at their own

@@ -12,13 +12,22 @@ across many concurrent requests:
   - every step the adapter drives one batched multi-position forward
     whose total positions (active slots x width) stay within N_max(eps).
 
-Modes: ``greedy`` (one position per request per forward) and
-``speculative`` (per-request n-gram verification windows).  Both streams
-are identical to each request decoded alone by greedy decoding.  The
-reference's ``diffusion`` and ``mtp`` modes are not ported yet.  A model
-with recurrent (SSM) state serves greedy only: a verify forward advances
-the state over every drafted position, rejected ones included, and the
-state after the accepted prefix is not kept.
+Modes, each a ``SlotAdapter`` (``serving.algorithm``):
+
+  greedy       one position per request per forward,
+  speculative  per-request n-gram verification windows,
+  mtp          per-request head-bank proposals from each row's last
+               hidden state, one shared verify forward,
+  diffusion    per-request mask-block refinement: every refinement
+               iteration is one shared forward, and a last shared forward
+               over the resolved blocks commits their K/V.
+
+Greedy, speculative and mtp streams are identical to each request decoded
+alone by greedy decoding; diffusion streams are identical to the solo
+``DiffusionBlockDecoder`` at the same block size.  A model with recurrent
+(SSM) state serves greedy only: a verify or refinement forward advances
+the state over every drafted or masked position, and the state after the
+accepted prefix is not kept.
 
 Load-pressure policies, as in the reference: ``submit`` backpressure
 (bounded waiting queue -> ``AdmissionRejected``), SLO-class priority
@@ -37,7 +46,9 @@ import torch
 
 from repro_torch.kernels.decode_attention.ops import slack_report
 from repro_torch.serving.algorithm import SlotAdapter
+from repro_torch.serving.diffusion import DiffusionSlotAdapter
 from repro_torch.serving.engine import DecodeEngine, greedy_tokens
+from repro_torch.serving.mtp import MTPSlotAdapter
 from repro_torch.serving.speculative import SpeculativeSlotAdapter
 
 __all__ = ["AdmissionConfig", "AdmissionRejected", "Request", "SLOClass",
@@ -100,6 +111,7 @@ class Request:
     generated: List[int] = field(default_factory=list)
     pending: Optional[int] = None          # next token to feed (emitted,
     slot: Optional[int] = None             #   not yet in the cache)
+    hidden: Optional[Tensor] = None        # (d,) state MTP proposes from
     done: bool = False
     slo_class: str = "default"
     preemptions: int = 0                   # times evicted + requeued
@@ -118,29 +130,40 @@ class Request:
 class ServingLoop:
     """Multiplex concurrent requests through one shared DecodeEngine.
 
-    ``mode`` selects the per-slot adapter."""
+    ``mode`` selects the per-slot adapter; ``mtp_heads`` feeds the mtp
+    adapter, ``block_size`` / ``refine_steps`` / ``mask_id`` the diffusion
+    one."""
 
-    MODES = ("greedy", "speculative")
+    MODES = ("greedy", "speculative", "diffusion", "mtp")
 
     def __init__(self, engine: DecodeEngine, mode: str = "greedy",
                  eps: float = 0.2, max_width: int = 16,
+                 mtp_heads: Optional[Dict] = None,
+                 block_size: Optional[int] = None, refine_steps: int = 4,
+                 mask_id: Optional[int] = None,
                  admission: Optional[AdmissionConfig] = None):
         self.engine = engine
         self.eps = eps
         self.max_width = max_width
         self.admission = admission if admission is not None \
             else AdmissionConfig()
-        if mode in ("diffusion", "mtp"):
-            raise ValueError(f"serving mode {mode!r}: not ported yet")
         if mode not in self.MODES:
             raise ValueError(f"unknown serving mode {mode!r}")
         if mode != "greedy" and engine.recurrent:
             raise ValueError(
                 f"serving mode {mode!r} on {engine.cfg.name}: its recurrent "
-                "SSM state would take in the rejected drafts of every "
-                "verify forward; serve it greedy")
-        self.adapter = (SpeculativeSlotAdapter(self) if mode == "speculative"
-                        else SlotAdapter(self))
+                "SSM state would take in the rejected or masked positions "
+                "of every multi-position forward; serve it greedy")
+        if mode == "speculative":
+            self.adapter = SpeculativeSlotAdapter(self)
+        elif mode == "mtp":
+            self.adapter = MTPSlotAdapter(self, mtp_heads)
+        elif mode == "diffusion":
+            self.adapter = DiffusionSlotAdapter(
+                self, block_size=block_size, refine_steps=refine_steps,
+                mask_id=mask_id)
+        else:
+            self.adapter = SlotAdapter(self)
         self.mode = mode
         self._budget_info: Dict = {}
         self.waiting: Deque[Request] = deque()
@@ -153,8 +176,9 @@ class ServingLoop:
         self.rejected_total = 0
         # engine.prefill_log outlives this loop — remember where ours starts
         self._prefill_log_start = len(engine.prefill_log)
-        # one telemetry entry per FORWARD: active/width/positions/budget
-        # plus, on the kernel path, its modelled granularity slack
+        # one telemetry entry per FORWARD (diffusion: per refinement and
+        # commit forward): active/width/positions/budget plus, on the
+        # kernel path, its modelled granularity slack
         self.step_log: List[Dict] = []
 
     # ------------------------------------------------------------------
@@ -257,6 +281,7 @@ class ServingLoop:
         self.engine.preempt_slot(slot)
         self.free_slots.append(slot)
         req.slot = None
+        req.hidden = None           # MTP: rebuilt from the resume prefill
         req.preemptions += 1
         self.preempted_total += 1
         self.waiting.appendleft(req)

@@ -19,7 +19,7 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import init_model as port_init_model  # noqa: E402
 
 ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m",
-         "falcon_mamba_7b"]
+         "llada_mini_like", "falcon_mamba_7b"]
 
 
 def _bits(t: "torch.Tensor") -> np.ndarray:

@@ -1,6 +1,7 @@
 """The port's serving stack against the reference's on the same weights:
 engine prefill logs and per-step logits, and ``ServingLoop`` token
-streams — greedy and speculative, dense and paged (with a prefix hit),
+streams — greedy, speculative, diffusion and MTP (on one MTP head bank
+in both stacks), dense and paged (with a prefix hit),
 the port's kernel flag on and off (its plain versions on the CPU), and a
 preemption with recompute-on-resume — for a dense model (reduced
 stablelm_3b) and an MoE one (reduced granite_moe_3b_a800m, whose kernel
@@ -37,14 +38,18 @@ from repro.serving import AdmissionRejected as RefRejected  # noqa: E402
 from repro.serving import DecodeEngine as RefEngine  # noqa: E402
 from repro.serving import PagedKVConfig as RefPaged  # noqa: E402
 from repro.serving import ServingLoop as RefLoop  # noqa: E402
+from repro.serving import init_mtp_heads as ref_init_heads  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.core.hardware import HardwareSpec  # noqa: E402
+from repro_torch.models import init_model as port_init_model  # noqa: E402
 from repro_torch.serving import (AdmissionConfig, AdmissionRejected,  # noqa: E402
                                  DecodeEngine, PagedKVConfig, ServingLoop)
 
 MAX_LEN, SLOTS, TOKENS = 128, 2, 10
-MODES = ["greedy", "speculative"]
+MODES = ["greedy", "speculative", "diffusion", "mtp"]
+# modes whose streams equal greedy decoding (diffusion's are its own)
+LOSSLESS = ("greedy", "speculative", "mtp")
 PAGES = [0, 16]
 LOGIT_TOL = dict(atol=1e-4, rtol=1e-4)      # float32 rounding, two layers
 HW = HardwareSpec(**dataclasses.asdict(TPU_V5E))
@@ -57,7 +62,25 @@ def model(request):
     cfg = get_config(request.param, reduced=True)
     params = init_model(jax.random.PRNGKey(0), cfg, dtype=jnp.float32)
     port = params_from_jax(jax.tree.map(np.asarray, params))
+    heads = ref_init_heads(jax.random.PRNGKey(5), cfg.d_model,
+                           cfg.vocab_size, n_heads=4, dtype=jnp.float32)
+    HEADS[cfg.name] = (heads,
+                       params_from_jax(jax.tree.map(np.asarray, heads)))
     return cfg, port_config(request.param, reduced=True), params, port
+
+
+#: model name -> (reference MTP head bank, the same bank for the port)
+HEADS = {}
+
+
+def _mode_kw(cfg, mode, port=False):
+    """ServingLoop arguments of ``mode``: the MTP bank (the mtp mode), a
+    diffusion block of 4 refined in 2 forwards."""
+    if mode == "mtp":
+        return {"mtp_heads": HEADS[cfg.name][int(port)]}
+    if mode == "diffusion":
+        return {"block_size": 4, "refine_steps": 2}
+    return {}
 
 
 def _prompts(vocab):
@@ -108,7 +131,7 @@ def ref_runs(model):
         for mode in MODES:
             for bs in PAGES:
                 eng = _ref_engine(cfg, params, bs)
-                loop = RefLoop(eng, mode=mode)
+                loop = RefLoop(eng, mode=mode, **_mode_kw(cfg, mode))
                 for p in _prompts(cfg.vocab_size):
                     loop.submit(p, TOKENS)
                 out[mode, bs] = (loop.run(), loop.stats(), eng.prefill_log)
@@ -141,7 +164,7 @@ def test_streams_match_reference(model, ref_runs, mode, bs, use_kernel):
     cfg, pcfg, _, port = model
     want, want_stats, want_log = ref_runs[mode, bs]
     eng = _port_engine(pcfg, port, bs, use_kernel)
-    loop = ServingLoop(eng, mode=mode)
+    loop = ServingLoop(eng, mode=mode, **_mode_kw(cfg, mode, port=True))
     for p in _prompts(cfg.vocab_size):
         loop.submit(p, TOKENS)
     got = loop.run()
@@ -165,12 +188,23 @@ def test_streams_match_reference(model, ref_runs, mode, bs, use_kernel):
 @pytest.mark.parametrize("bs", PAGES, ids=["dense", "paged"])
 @pytest.mark.parametrize("mode", MODES)
 def test_preemption_resumes_reference_streams(model, ref_runs, mode, bs):
-    """Evict + recompute-on-resume is invisible in the streams."""
-    cfg, pcfg, _, port = model
-    loop = ServingLoop(_port_engine(pcfg, port, bs), mode=mode)
+    """Evict + recompute-on-resume is invisible in the lossless streams.
+    A diffusion stream depends on its blocks, which the eviction moves:
+    there the reference loop is driven through the same preemption."""
+    cfg, pcfg, params, port = model
+    loop = ServingLoop(_port_engine(pcfg, port, bs), mode=mode,
+                       **_mode_kw(cfg, mode, port=True))
     got = _drive(loop, _prompts(cfg.vocab_size), preempt_at=2)
     assert loop.preempted_total >= 1 and loop.resumed_total >= 1
-    want = ref_runs[mode, bs][0]
+    if mode in LOSSLESS:
+        want = ref_runs[mode, bs][0]
+    else:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(ref_engine_mod, "init_cache",
+                       functools.partial(ref_init_cache, dtype=jnp.float32))
+            want = _drive(RefLoop(_ref_engine(cfg, params, bs), mode=mode,
+                                  **_mode_kw(cfg, mode)),
+                          _prompts(cfg.vocab_size), preempt_at=2)
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid], err_msg=str(rid))
 
@@ -217,7 +251,8 @@ def test_engine_prefill_and_step_logits(model, f32_scratch, bs):
 
 def test_greedy_generate_is_the_oracle(model, ref_runs):
     """The solo greedy driver matches the reference's, and every served
-    stream (both modes, both caches) equals its request decoded alone."""
+    stream of a lossless mode (both caches) equals its request decoded
+    alone."""
     cfg, pcfg, params, port = model
     ref = RefEngine(cfg, params, batch=1, max_len=MAX_LEN,
                     cache=ref_init_cache(cfg, 1, MAX_LEN, dtype=jnp.float32))
@@ -230,8 +265,9 @@ def test_greedy_generate_is_the_oracle(model, ref_runs):
         got = eng.greedy_generate(torch.as_tensor(prompt[None]),
                                   TOKENS)[0].numpy()
         np.testing.assert_array_equal(got, want)
-        for streams, _, _ in ref_runs.values():
-            np.testing.assert_array_equal(streams[rid], got)
+        for (mode, _), (streams, _, _) in ref_runs.items():
+            if mode in LOSSLESS:
+                np.testing.assert_array_equal(streams[rid], got)
 
 
 def test_backpressure_raises_the_ports_own_rejection(model):
@@ -293,8 +329,16 @@ def test_priority_admission_and_preemption(model):
     assert loop.resumed_total == 1
 
 
-def test_unported_modes_raise(model):
-    _, pcfg, _, port = model
-    for mode in ("diffusion", "mtp"):
-        with pytest.raises(ValueError, match="not ported yet"):
-            ServingLoop(_port_engine(pcfg, port, 0), mode=mode)
+@pytest.mark.parametrize("mode", ["speculative", "diffusion", "mtp"])
+def test_ssm_engine_refuses_multi_position_modes(mode):
+    """Every mode but greedy runs multi-position forwards over rejected or
+    masked positions, which a recurrent state would take in: an SSM
+    engine refuses them all."""
+    pcfg = port_config("falcon_mamba_7b", reduced=True)
+    port = port_init_model(pcfg, torch.Generator().manual_seed(0), "cpu",
+                           torch.float32)
+    eng = DecodeEngine(pcfg, port, batch=SLOTS, max_len=MAX_LEN,
+                       hardware=HW, device="cpu")
+    with pytest.raises(ValueError, match="recurrent SSM state"):
+        ServingLoop(eng, mode=mode, mtp_heads={"heads": torch.zeros(
+            (2, pcfg.d_model, pcfg.vocab_size))})

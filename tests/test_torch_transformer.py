@@ -2,9 +2,10 @@
 inputs: logits, final hidden states and the caches it writes — prefill,
 multi-position decode with scalar and per-row (b,) lengths, the dense
 cache and the paged pool, and the port's kernel flag (its plain versions
-on the CPU).  The MoE model (reduced granite) also matches the summed
-aux loss; its kernel flag runs the grouped FFN's plain version (f32 h)
-where the reference forward runs ragged_dot.
+on the CPU).  The MoE models (reduced granite, and reduced
+llada_mini_like at E = 16 top-2) also match the summed aux loss; their
+kernel flag runs the grouped FFN's plain version (f32 h) where the
+reference forward runs ragged_dot.
 
 Weights are float32 so the point is the algorithm; 1e-4 covers the
 float32 rounding of reordered sums through two layers (observed ~4e-6)."""
@@ -28,7 +29,8 @@ from repro_torch.configs import get_config as port_config  # noqa: E402
 from repro_torch.models import forward, init_cache, init_paged_cache  # noqa: E402
 
 TOL = dict(atol=1e-4, rtol=1e-4)
-ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m"]
+ARCHS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m",
+         "llada_mini_like"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
