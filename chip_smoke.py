@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--out DIR]
+
+``--out`` (default build/chip_smoke) receives the pinned replay's
+scorecard and the calibration tables.
 
 Phases, in order; any failure exits non-zero:
   1. device   — require CUDA, print the card's name and power limit.
@@ -48,7 +51,14 @@ Phases, in order; any failure exits non-zero:
                 launch floor (a one-element add_ under the same timing),
                 and prints the MoE kernel's M_moe / tau staircase over T
                 and the scan's M_ssm staircase over n.
-  4. serving  — full-size stablelm_3b, then full-size granite_moe_3b_a800m,
+  4. serving  — every decode forward replays a CUDA graph per width (the
+                captured decode step, ``serving.capture``).  For each
+                model first: captured against eager ``decode_slots`` at
+                n in {1, 5, 16, 17}, dense and paged (falcon dense): logits
+                and hidden bitwise equal, the cache (K/V, SSM states)
+                bitwise equal after a commit, launches per call equal
+                across eager calls, the capture and a replay.  Then
+                full-size stablelm_3b, then full-size granite_moe_3b_a800m,
                 then full-size falcon_mamba_7b, each with seeded random
                 bf16 weights, 4 slots, max_len 256,
                 8 requests of 48-token prompts (two share their first 32
@@ -94,17 +104,39 @@ Phases, in order; any failure exits non-zero:
                 near-tie of the selection (printed in bf16, held in f32);
                 the full-size forward kernel-vs-plain.  The diffusion runs
                 repeat in float32 (wedlm at full size, 33 GB; llada at
-                full width and 8 of its 20 layers, printed as a cut)
+                full width and 4 of its 20 layers, printed as a cut)
                 through the plain versions (the kernels take bf16 only),
                 where the solo comparison and the K/V check are held.
                 Every run prints its forwards, positions per forward,
                 budget range and tok/s, and a profile of its steady steps
-                its device-idle share.
-  5. report   — one JSON line of kernels, the card line, and the final
+                its device-idle share.  Each model's paged greedy run (for
+                falcon its bf16 dense greedy) is repeated eagerly
+                (``capture=False``) in the same call: streams identical,
+                tok/s and the profiled idle share printed side by side.
+                Then each model's NFP calibration on the card:
+                ``calibrate_engine`` (wall clock, CUDA events, the
+                captured step) on a dense 4-slot engine of 1024 positions
+                over ``width_grid(128)`` at buckets 64, 256 and 896, its
+                launches exactly layers x forwards: per bucket the measured
+                N_max beside the analytic budget, its limiting term, n_idle,
+                the noise and both over-prediction ratios.
+  5. cli      — through ``repro_torch.launch.serve``: the pinned trace
+                replay (``loadgen.PINNED_STACK``, full-width stablelm_3b)
+                on the simulated H100 clock, then on the wall clock,
+                writing <out>/BENCH_serving_h100.json (TTFT, ITL,
+                goodput per SLO class), read back and checked; then
+                wedlm8b_like and granite_moe_3b_a800m served speculative
+                with ``--calibration run`` and then ``load`` (applied and
+                analytic mean budgets, latency ratios).  A summary of
+                eager vs captured tok/s, idle shares and the calibration
+                table follows.
+  6. report   — one JSON line of kernels (launches summed over every run
+                above), the command time, the card line, and the final
                 {"ok": true, ...} line.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import functools
 import gc
@@ -195,7 +227,7 @@ CONF_RTOL_BF16 = 2.0 ** -4
 KV_RTOL = {torch.bfloat16: 5e-2, torch.float32: 1e-3}
 # llada_mini_like in float32 (67 GB at 20 layers) runs at full width and
 # this depth
-LLADA_F32_LAYERS = 8
+LLADA_F32_LAYERS = 4
 PEAK_BYTES_S = 3.35e12      # H100 SXM HBM3
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOPS = 67e12      # H100 SXM f32 outside the tensor cores
@@ -205,6 +237,18 @@ GRANITE_MOE = (40, 8, 1536, 512)
 LLADA_MOE = (256, 8, 2048, 512)
 # falcon_mamba_7b's scan: (d_inner, d_state)
 FALCON_SCAN = (8192, 16)
+# captured vs eager decode_slots: the widths held bitwise equal
+CAPTURE_WIDTHS = (1, 5, 16, 17)
+# the calibration engines: 4 slots, a dense cache of this length (buckets
+# 64, 256 and 896 under width_grid(128))
+CALIB_MAX_LEN = 1024
+# where the scorecard and calibration tables go (``--out``)
+OUT = ROOT / "build" / "chip_smoke"
+# run name -> (tok/s, forwards, seconds) and profile label -> idle %, for
+# the summary; calibration rows by model
+SPEEDS = []
+IDLE = {}
+CALIBRATION = {}
 
 
 def card_line() -> str:
@@ -793,10 +837,52 @@ def top2_gap(logits):
     return top[..., 0] - top[..., 1]
 
 
+#: getters of the lists that active route hooks (``RouteRecorder``,
+#: ``DiffusionTrace``) append to; ``capture_routes`` feeds them on replay
+ROUTE_SINKS = []
+
+
+def capture_routes(eng) -> None:
+    """A route hook appends, in Python, what it computes from each
+    ``route_topk`` call, and a replayed CUDA graph calls no Python.  So
+    the entries the active hooks append while a width's graph is CAPTURED
+    (device tensors the graph rewrites on every replay) are kept per
+    width, and every replay of it appends clones of them, as an eager
+    forward appends fresh ones; the capture's warm-up forward appends the
+    same number first, which are dropped."""
+    graphs = eng.graphs
+    inner_capture, inner_replay = graphs._capture, graphs.replay
+    kept = {}
+
+    def clone(x):
+        return tuple(t.clone() for t in x) if isinstance(x, tuple) \
+            else x.clone()
+
+    def capture(shape):
+        sinks = [get() for get in ROUTE_SINKS]
+        marks = [len(sink) for sink in sinks]
+        step = inner_capture(shape)
+        kept[shape[1]] = []
+        for sink, mark in zip(sinks, marks):
+            new = sink[mark:]
+            del sink[mark:]
+            kept[shape[1]].append(new[len(new) // 2:])
+        return step
+
+    def replay(tokens, use_kernel):
+        out = inner_replay(tokens, use_kernel)
+        for get, entries in zip(ROUTE_SINKS, kept[tokens.shape[1]]):
+            get().extend(clone(x) for x in entries)
+        return out
+    graphs._capture, graphs.replay = capture, replay
+
+
 class RouteRecorder:
     """While a run serves, wraps the port's ``route_topk`` and the engine's
-    two forward entries — ``decode_slots`` (decode, verify and prefix-hit
-    suffix forwards) and ``_prefill_scratch`` (prompt prefill) — to keep,
+    three forward entries — ``decode_slots`` (decode and verify forwards,
+    captured or not), ``_decode_forward`` called from a prefill (the
+    prefix-hit suffix forward) and ``_prefill_scratch`` (prompt prefill) —
+    to keep,
     for every forward of an MoE model, each row's request and first
     context position and every layer's routing: the chosen experts
     (sorted) and the router margin between the k-th and (k+1)-th expert
@@ -807,6 +893,7 @@ class RouteRecorder:
         self.mod, self.inner, self.loop = moe_mod, moe_mod.route_topk, loop
         self.calls, self.forwards, self.pending = [], [], []
         self.admitting = False
+        self.in_decode = False
         self.saved = ()
 
     def __enter__(self):
@@ -820,12 +907,26 @@ class RouteRecorder:
             return weights, idx, probs
         eng, loop = self.loop.engine, self.loop
         inner_decode, inner_scratch = eng.decode_slots, eng._prefill_scratch
+        inner_forward = eng._decode_forward
         inner_admit = loop.admit
 
         def decode_slots(tokens):
             offsets = eng.slot_lens_host.copy()
             self.calls.clear()
-            out = inner_decode(tokens)
+            self.in_decode = True
+            try:
+                out = inner_decode(tokens)
+            finally:
+                self.in_decode = False
+            self._add(list(range(tokens.shape[0])), offsets, tokens.shape[1])
+            return out
+
+        def decode_forward(tokens):
+            if self.in_decode:          # an eager decode_slots records it
+                return inner_forward(tokens)
+            offsets = eng.slot_lens_host.copy()
+            self.calls.clear()
+            out = inner_forward(tokens)
             self._add(list(range(tokens.shape[0])), offsets, tokens.shape[1])
             return out
 
@@ -846,16 +947,23 @@ class RouteRecorder:
                 self._keep(slots, offsets, route)
             self.pending.clear()
             return admitted
-        self.saved = (inner_decode, inner_scratch, inner_admit)
+        self.saved = (inner_decode, inner_scratch, inner_forward, inner_admit)
         self.mod.route_topk = route
         eng.decode_slots, eng._prefill_scratch = decode_slots, prefill_scratch
+        eng._decode_forward = decode_forward
         loop.admit = admit
+        ROUTE_SINKS.append(self._sink)
         return self
 
+    def _sink(self):
+        return self.calls
+
     def __exit__(self, *exc):
+        ROUTE_SINKS.remove(self._sink)
         self.mod.route_topk = self.inner
         eng = self.loop.engine
-        eng.decode_slots, eng._prefill_scratch, self.loop.admit = self.saved
+        (eng.decode_slots, eng._prefill_scratch, eng._decode_forward,
+         self.loop.admit) = self.saved
 
     def _add(self, slots, offsets, n):
         calls, self.calls = self.calls, []
@@ -930,19 +1038,23 @@ def record_gaps(loop):
 
 
 def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
-              loop_kw=None, prepare=None, use_kernel=True):
+              loop_kw=None, prepare=None, use_kernel=True, capture=True):
     """Serve ``prompts`` x 32 tokens on a 4-slot engine (paged with
     ``block_size``) in ``mode`` (``loop_kw``: the ServingLoop's mode
     arguments), counting every kernel's launches from 0; ``prepare(loop)``
     attaches further recorders before the run; ``use_kernel`` False runs
-    the plain versions (and expects no launch).  Returns (streams,
-    launches, top-2 gap record, routing record)."""
+    the plain versions (and expects no launch); ``capture`` False runs the
+    decode forwards eagerly instead of replaying CUDA graphs.  Records the
+    run's tok/s in ``SPEEDS``.  Returns (streams, launches, top-2 gap
+    record, routing record)."""
     DecodeEngine, PagedKVConfig, ServingLoop, ops, moe_ops, moe, scan_ops = \
         mods[:7]
     gc.collect()                  # loops of earlier runs hold their caches
     paged = PagedKVConfig(block_size=block_size) if block_size else None
     eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN, paged=paged,
-                       device="cuda", use_kernel=use_kernel)
+                       device="cuda", use_kernel=use_kernel, capture=capture)
+    if eng.graphs is not None:
+        capture_routes(eng)
     loop = ServingLoop(eng, mode=mode, **(loop_kw or {}))
     rec = record_gaps(loop)
     recorder = RouteRecorder(moe, loop)
@@ -980,7 +1092,8 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     name = (f"{cfg.name}{' f32' if f32 else ''} "
             f"{'paged' if block_size else 'dense'} {mode}"
             f"{f' block {block}' if block else ''}"
-            f"{'' if use_kernel else ' (plain versions)'}")
+            f"{'' if use_kernel else ' (plain versions)'}"
+            f"{' captured' if capture else ' eager'}")
     if s["requests"] != len(prompts) or any(
             len(t) != 32 for t in results.values()):
         raise AssertionError(f"{name}: not every request finished")
@@ -1022,7 +1135,9 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
           f"{min(budgets)}..{max(budgets)}, {dt:.3f} s wall, "
           f"{s['tokens'] / dt:.1f} tok/s, launches {launches}"
           f"{', token blocks ' + str(sorted(blocks_seen)) if is_moe else ''}"
+          f"{f', {len(eng.graphs.steps)} graphs' if capture else ''}"
           f" [{card}]")
+    SPEEDS.append((name, s["tokens"] / dt, s["forwards"], dt))
     return results, launches, rec, recorder.forwards
 
 
@@ -1088,17 +1203,21 @@ def check_forward(mods, cfg, params, prompts, rtol, held=True) -> None:
 
 def profile_steps(mods, cfg, params, prompts, card,
                   how="paged speculative", loop_kw=None, warm=2, steps=4,
-                  top=8, use_kernel=True) -> None:
-    """torch.profiler over ``steps`` steady decode steps (after ``warm``)
-    of 4-slot serving, ``how`` = "paged|dense <mode>": device busy share
-    of the wall time and the ``top`` kernels."""
+                  top=8, use_kernel=True, capture=True,
+                  host=False) -> None:
+    """torch.profiler over ``steps`` steady decode steps (after ``warm``;
+    a captured engine has captured its graphs there) of 4-slot serving,
+    ``how`` = "paged|dense <mode>": device busy share of the wall time
+    and the ``top`` kernels; recorded in ``IDLE``.  With ``host``,
+    cProfile over ``steps`` further steps: the host functions that take
+    the most of a step's own time."""
     from torch.profiler import ProfilerActivity, profile
     DecodeEngine, PagedKVConfig, ServingLoop = mods[:3]
     paged = how.startswith("paged")
     gc.collect()
     eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
                        paged=PagedKVConfig(block_size=16) if paged else None,
-                       device="cuda", use_kernel=use_kernel)
+                       device="cuda", use_kernel=use_kernel, capture=capture)
     loop = ServingLoop(eng, mode=how.split()[1], **(loop_kw or {}))
     for p in prompts[:4]:
         loop.submit(p, 32)
@@ -1123,13 +1242,41 @@ def profile_steps(mods, cfg, params, prompts, card,
         print("profile: the profiler recorded no device time (not measured)")
         return
     dtype = str(params["embed"]["table"].dtype).split(".")[1]
-    print(f"profile {cfg.name} {dtype}{'' if use_kernel else ' plain'} "
-          f"({steps} {how} steps, {forwards} "
+    label = (f"{cfg.name} {dtype}{'' if use_kernel else ' plain'} {how} "
+             f"{'captured' if capture else 'eager'}")
+    IDLE[label] = 100 * (1 - total / wall_ms)
+    print(f"profile {label} ({steps} steps, {forwards} "
           f"forwards, under the profiler): wall {wall_ms:.1f} ms, device "
           f"busy {total:.2f} ms ({100 * total / wall_ms:.1f}%), idle "
           f"{100 * (1 - total / wall_ms):.1f}% [{card}]")
     for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:top]:
         print(f"  {ms:8.3f} ms  {100 * ms / total:5.1f}%  {name[:90]}")
+    if host:
+        host_profile(loop, label, steps, card)
+
+
+def host_profile(loop, label, steps, card) -> None:
+    """cProfile over ``steps`` decode steps: wall ms per step and the
+    functions with the most own time (cProfile adds to every Python
+    call, so shares are indicative, not device metrics)."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(steps):
+        loop.step()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    st = pstats.Stats(prof)
+    rows = sorted(st.stats.items(), key=lambda kv: -kv[1][2])[:10]
+    print(f"host profile {label} ({steps} steps under cProfile): "
+          f"{wall:.2f} ms a step; own time per step: " + "; ".join(
+              f"{fn[2]} ({Path(fn[0]).name}:{fn[1]}) "
+              f"{1e3 * v[2] / steps:.2f} ms" for fn, v in rows)
+          + f" [{card}]")
 
 
 def gap_at(rec, rid, pos):
@@ -1218,6 +1365,141 @@ def compare_streams(name, greedy, other, recs, routes, prompt_len,
     return full
 
 
+# ---------------------------------------------------------------------------
+# the captured decode step and the NFP calibration
+# ---------------------------------------------------------------------------
+
+def check_capture(mods, cfg, params, prompts, card) -> None:
+    """Captured against eager ``decode_slots`` at full size: two engines
+    (``capture`` True and False) on the same weights prefill the same 4
+    prompts, then at each width of ``CAPTURE_WIDTHS`` run the same tokens
+    twice (the captured engine captures, then replays) and commit the
+    same advances (one row advancing 0).  Logits and hidden states must
+    be bitwise equal, every call's kernel launches equal, and after the
+    commits every cache tensor (K/V, and an SSM model's states) bitwise
+    equal — dense, and paged for an attention model."""
+    from repro_torch.serving.capture import launch_counts
+    DecodeEngine, PagedKVConfig = mods[:2]
+    pools = ((None,) if cfg.attention is None
+             else (None, PagedKVConfig(block_size=16)))
+    for paged in pools:
+        gc.collect()
+        engs = [DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
+                             paged=paged, device="cuda", capture=c)
+                for c in (False, True)]
+        for eng in engs:
+            with Uncounted(mods):
+                eng.prefill_slots({s: prompts[s] for s in range(4)})
+        rng = np.random.default_rng(1)
+        mode = "paged" if paged else "dense"
+        for n in CAPTURE_WIDTHS:
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                                size=(4, n)), device="cuda")
+            adv = np.array([n, 1, 0, min(2, n)])
+            outs, counts, times = [], [], []
+            for eng in engs:
+                for _ in range(2):
+                    before = launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    logits, cache, hidden = eng.decode_slots(toks)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    after = launch_counts()
+                    counts.append({k: after[k] - before[k] for k in after})
+                outs.append((logits.clone(), hidden.clone()))
+                eng.commit_slots(cache, adv)
+            same_cache = all(
+                torch.equal(a, b)
+                for sa, sb in zip(engs[0].cache["segments"],
+                                  engs[1].cache["segments"])
+                for a, b in zip(sa.values(), sb.values()))
+            ok = (torch.equal(outs[0][0], outs[1][0])
+                  and torch.equal(outs[0][1], outs[1][1]) and same_cache
+                  and all(c == counts[0] for c in counts)
+                  and sum(counts[0].values()) > 0)
+            print(f"capture {cfg.name} {mode} n={n}: logits and hidden "
+                  f"bitwise equal {torch.equal(outs[0][0], outs[1][0])} / "
+                  f"{torch.equal(outs[0][1], outs[1][1])}, cache after the "
+                  f"commit equal {same_cache}, launches per call "
+                  f"{counts[0]} (eager, eager, capture, replay: "
+                  f"{'equal' if all(c == counts[0] for c in counts) else counts}"
+                  f"); host ms eager {1e3 * times[1]:.1f}, captured "
+                  f"{1e3 * times[3]:.1f} (the capture call "
+                  f"{1e3 * times[2]:.1f}) [{card}]")
+            if not ok:
+                raise AssertionError(f"{cfg.name} {mode} n={n}: the captured "
+                                     "decode step leaves the eager one")
+        del engs
+
+
+def calibration_table(mods, cfg, params, card) -> dict:
+    """The paper's measurement on the card: ``calibrate_engine`` (wall
+    clock: the CAPTURED decode step, CUDA events) on a dense 4-slot
+    engine of ``CALIB_MAX_LEN`` positions over ``width_grid(128)`` at the
+    buckets it derives, every kernel launch of the sweep counted (exactly
+    layers x forwards).  Prints per bucket the measured N_max beside the
+    analytic budget, n_idle and the limiting term, the noise, both
+    over-prediction ratios and T(N); saves the table under
+    ``<out>/calibration/``.  Returns the launches."""
+    from repro_torch.autotune import calibrate_engine, save_table
+    DecodeEngine, ops, moe_ops, scan_ops = mods[0], mods[3], mods[4], mods[6]
+    gc.collect()
+    eng = DecodeEngine(cfg, params, batch=4, max_len=CALIB_MAX_LEN,
+                       device="cuda")
+    fns = {"dense": ops.decode_attention_ragged,
+           "paged": ops.decode_attention_paged,
+           "moe": moe_ops.grouped_ffn_padded,
+           "scan": scan_ops.selective_scan_padded}
+    for fn in fns.values():
+        fn.launches = 0
+    warmup, rounds, iters = 3, 5, 5
+    t0 = time.perf_counter()
+    table = calibrate_engine(eng, modes=("greedy",), warmup=warmup,
+                             rounds=rounds, iters=iters)
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    forwards = sum(len(e.ns) for e in table.entries) * (warmup
+                                                        + rounds * iters)
+    is_moe, is_ssm = cfg.ffn.kind == "moe", cfg.ssm is not None
+    want = {"dense": 0 if is_ssm else cfg.n_layers * forwards, "paged": 0,
+            "moe": cfg.n_layers * forwards if is_moe else 0,
+            "scan": cfg.n_layers * forwards if is_ssm else 0}
+    print(f"calibration {cfg.name} ({table.backend} backend, captured "
+          f"decode step, 4 slots, max_len {CALIB_MAX_LEN}): "
+          f"{len(table.entries)} buckets x {len(table.entries[0].ns)} widths"
+          f" x {warmup + rounds * iters} forwards in {dt:.1f} s, "
+          f"{len(eng.graphs.steps)} graphs, launches {launches} [{card}]")
+    if table.backend != "wallclock" or launches != want:
+        raise AssertionError(f"{cfg.name} calibration: backend "
+                             f"{table.backend}, launches {launches}, "
+                             f"expected {want}")
+    rows = []
+    for e in table.entries:
+        t = dict(zip(e.ns, e.times))
+        rows.append({"ell": e.ell, "measured": e.measured_nmax,
+                     "analytic": e.analytic_nmax, "n_idle": e.n_idle,
+                     "limiting": e.limiting, "noise": e.noise,
+                     "over": e.overprediction,
+                     "idle_over": e.idle_overprediction,
+                     "t1_ms": 1e3 * e.baseline_time,
+                     "times_ms": {n: 1e3 * x for n, x in t.items()}})
+        if not all(np.isfinite(e.times)) or min(e.times) <= 0:
+            raise AssertionError(f"{cfg.name} calibration: bad T(N) {t}")
+        print(f"  {cfg.name} L={e.ell}: measured N_max {e.measured_nmax}, "
+              f"analytic {e.analytic_nmax} ({e.limiting}), n_idle "
+              f"{e.n_idle:.1f}, noise {e.noise:.4f}, over-prediction "
+              f"{e.overprediction:.2f}x, idle {e.idle_overprediction:.2f}x; "
+              f"T(N)/T(1) " + ", ".join(
+                  f"{n}: {x / e.baseline_time:.3f}" for n, x in t.items())
+              + f"; T(1) {1e3 * e.baseline_time:.4f} ms [{card}]")
+    CALIBRATION[cfg.name] = rows
+    (OUT / "calibration").mkdir(parents=True, exist_ok=True)
+    save_table(table, str(OUT / "calibration" / f"{cfg.name}.json"))
+    del eng
+    return launches
+
+
 def serve_model(mods, arch, card, forward_rtol,
                 dense_speculative=False) -> dict:
     """Phase 4 for one model: warm-up, the three serving runs (and with
@@ -1234,9 +1516,13 @@ def serve_model(mods, arch, card, forward_rtol,
     prompts[5][:32] = prompts[0][:32]          # admitted later: prefix hit
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
+    check_capture(mods, cfg, params, prompts, card)
     greedy, l1, rec, routes = serve_run(mods, cfg, params, prompts,
                                         block_size=16, mode="greedy",
                                         card=card)
+    eager, l0, _, _ = serve_run(mods, cfg, params, prompts, block_size=16,
+                                mode="greedy", card=card, capture=False)
+    same_streams(f"{cfg.name} paged greedy", eager, greedy)
     spec, l2, _, routes_spec = serve_run(mods, cfg, params, prompts,
                                          block_size=16, mode="speculative",
                                          card=card)
@@ -1247,7 +1533,8 @@ def serve_model(mods, arch, card, forward_rtol,
                     (routes, routes_spec), plen, shared)
     compare_streams(f"{cfg.name} dense greedy", greedy, dense,
                     [rec, rec_dense], (routes, routes_dense), plen, shared)
-    runs = {"paged_greedy": l1, "paged_speculative": l2, "dense_greedy": l3}
+    runs = {"paged_greedy": l1, "paged_greedy_eager": l0,
+            "paged_speculative": l2, "dense_greedy": l3}
     if dense_speculative:
         dspec, runs["dense_speculative"], _, routes_dspec = serve_run(
             mods, cfg, params, prompts, block_size=0, mode="speculative",
@@ -1255,8 +1542,24 @@ def serve_model(mods, arch, card, forward_rtol,
         compare_streams(f"{cfg.name} dense speculative", greedy, dspec,
                         [rec], (routes, routes_dspec), plen, shared)
     check_forward(mods, cfg, params, prompts, forward_rtol)
+    for capture in (True, False):
+        profile_steps(mods, cfg, params, prompts, card, how="paged greedy",
+                      top=4, capture=capture, host=capture)
     profile_steps(mods, cfg, params, prompts, card)
+    runs["calibration"] = calibration_table(mods, cfg, params, card)
     return runs
+
+
+def same_streams(name, eager, captured) -> None:
+    """The captured step is bitwise the eager one, so a run's streams
+    must be identical token for token."""
+    bad = [rid for rid in eager if not np.array_equal(eager[rid],
+                                                      captured[rid])]
+    print(f"{name}: captured streams == eager streams in {len(eager) - len(bad)}"
+          f"/{len(eager)}")
+    if bad:
+        raise AssertionError(f"{name}: captured streams leave the eager "
+                             f"ones for requests {bad}")
 
 
 # ---------------------------------------------------------------------------
@@ -1307,9 +1610,14 @@ class DiffusionTrace:
         self.saved = (inner_pull, inner_route)
         self.diff.pull_confidence = pull
         self.moe.route_topk = route
+        ROUTE_SINKS.append(self._sink)
         return self
 
+    def _sink(self):
+        return self.margins
+
     def __exit__(self, *exc):
+        ROUTE_SINKS.remove(self._sink)
         self.diff.pull_confidence, self.moe.route_topk = self.saved
 
 
@@ -1617,32 +1925,40 @@ def serve_parallel(mods, arch, card, forward_rtol, dense_block=None,
     plen, shared = len(prompts[0]), {5: (0, 32)}
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
+    check_capture(mods, cfg, params, prompts, card)
     greedy, l1, rec, routes = serve_run(mods, cfg, params, prompts,
                                         block_size=16, mode="greedy",
                                         card=card)
+    eager, l0, _, _ = serve_run(mods, cfg, params, prompts, block_size=16,
+                                mode="greedy", card=card, capture=False)
+    same_streams(f"{cfg.name} paged greedy", eager, greedy)
     mtp_kw = {"mtp_heads": heads}
     mtp, l2, _, routes_mtp = serve_run(mods, cfg, params, prompts,
                                        block_size=16, mode="mtp", card=card,
                                        loop_kw=mtp_kw)
     compare_streams(f"{cfg.name} paged mtp", greedy, mtp, [rec],
                     (routes, routes_mtp), plen, shared)
-    runs = {"paged_greedy": l1, "paged_mtp": l2}
+    runs = {"paged_greedy": l1, "paged_greedy_eager": l0, "paged_mtp": l2}
     solo = {}
     runs["paged_diffusion"] = diffusion_run(
         mods, cfg, params, prompts, card, block_size=16, block=None,
         solo_cache=solo)
-    profiles = [("paged greedy", None, 2, 4), ("paged mtp", mtp_kw, 2, 4),
-                ("paged diffusion", None, 0, 2)]
+    profiles = [("paged greedy", None, 2, 4, True),
+                ("paged mtp", mtp_kw, 2, 4, False),
+                ("paged diffusion", None, 0, 2, False)]
     if dense_block:
         runs["dense_diffusion"] = diffusion_run(
             mods, cfg, params, prompts, card, block_size=0,
             block=dense_block, solo_cache=solo)
         profiles.append(("dense diffusion", {"block_size": dense_block},
-                         0, 2))
+                         0, 2, False))
     check_forward(mods, cfg, params, prompts, forward_rtol)
-    for how, kw, warm, steps in profiles:
+    profile_steps(mods, cfg, params, prompts, card, how="paged greedy",
+                  top=4, capture=False)
+    for how, kw, warm, steps, host in profiles:
         profile_steps(mods, cfg, params, prompts, card, how=how, loop_kw=kw,
-                      warm=warm, steps=steps, top=4)
+                      warm=warm, steps=steps, top=4, host=host)
+    runs["calibration"] = calibration_table(mods, cfg, params, card)
     del params, heads, solo, mtp_kw, profiles
     gc.collect()
     torch.cuda.empty_cache()
@@ -1728,10 +2044,16 @@ def serve_ssm(mods, arch, card, forward_rtol) -> dict:
     prompts = [rng.integers(0, cfg.vocab_size, size=48) for _ in range(8)]
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
+    check_capture(mods, cfg, params, prompts, card)
     runs = {"dense_greedy_bf16": ssm_checks(mods, cfg, params, prompts,
                                             card, forward_rtol, held=False)}
-    profile_steps(mods, cfg, params, prompts, card, how="dense greedy")
+    for capture in (True, False):
+        profile_steps(mods, cfg, params, prompts, card, how="dense greedy",
+                      capture=capture, host=capture)
+    runs["calibration"] = calibration_table(mods, cfg, params, card)
     params32 = _to_f32(params)
+    for p in (params, params32):
+        count_launches(cfg, p, prompts, card)
     ssm_sensitivity(cfg, params, params32, prompts)
     del params
     torch.cuda.empty_cache()
@@ -1749,12 +2071,50 @@ def ssm_checks(mods, cfg, params, prompts, card, forward_rtol, held):
     served, launches, rec, _ = serve_run(mods, cfg, params, prompts,
                                          block_size=0, mode="greedy",
                                          card=card)
+    if dtype == "bf16":
+        eager, _, _, _ = serve_run(mods, cfg, params, prompts, block_size=0,
+                                   mode="greedy", card=card, capture=False)
+        same_streams(f"{cfg.name} bf16 dense greedy", eager, served)
     solo, rec_solo = solo_greedy(mods, cfg, params, prompts, card)
     compare_streams(f"{cfg.name} {dtype} dense greedy", solo, served,
                     [rec_solo, rec], ([], []), len(prompts[0]), {},
                     base="solo greedy_generate", held=held)
     check_forward(mods, cfg, params, prompts, forward_rtol, held=held)
     return launches
+
+
+def count_launches(cfg, params, prompts, card) -> None:
+    """Device kernels of one eager width-1 decode forward over 4 slots
+    (torch.profiler's kernel events), per layer: what a captured graph
+    holds as nodes and an eager forward launches from the host."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import forward
+    from repro_torch.models.transformer import init_cache
+    cache = init_cache(cfg, 4, MAX_LEN, params["embed"]["table"].dtype,
+                       "cuda")
+    toks = torch.as_tensor(np.stack([p[:1] for p in prompts[:4]]),
+                           device="cuda")
+    lens = torch.full((4,), 48, dtype=torch.int32, device="cuda")
+
+    def run():
+        forward(params, cfg, {"tokens": toks}, mode="decode", cache=cache,
+                cache_len=lens, use_kernel=True)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dtype = str(params["embed"]["table"].dtype).split(".")[1]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0) + 1
+    print(f"launches {cfg.name} {dtype}: {len(kernels)} device operations "
+          f"(kernels, copies, fills) in one width-1 decode forward, "
+          f"{len(kernels) / cfg.n_layers:.2f} per layer; most frequent: "
+          + ", ".join(f"{n[:60]} x{c}" for n, c in sorted(
+              by_name.items(), key=lambda kv: -kv[1])[:8]) + f" [{card}]")
 
 
 def ssm_sensitivity(cfg, params, params32, prompts) -> None:
@@ -1802,7 +2162,87 @@ def _leaves(tree):
         yield tree
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the serve CLI — pinned replay, calibrated serving
+# ---------------------------------------------------------------------------
+
+def cli_runs():
+    """(run name, serve CLI arguments): the pinned replay of full-width
+    stablelm_3b on the simulated H100 clock, then on the wall clock
+    (writing the scorecard); then wedlm8b_like and granite_moe_3b_a800m
+    served speculative with ``--calibration run`` and then ``load`` (4
+    slots, a dense 1024-position cache: the calibration's engine)."""
+    calib = OUT / "calibration"
+    out = [("stablelm_pinned_simulated",
+            ["--trace", "pinned", "--trace-clock", "simulated"]),
+           ("stablelm_pinned_wall",
+            ["--trace", "pinned", "--bench-out",
+             str(OUT / "BENCH_serving_h100.json")])]
+    for arch in ("wedlm8b_like", "granite_moe_3b_a800m"):
+        for how in ("run", "load"):
+            out.append((f"{arch.split('_')[0]}_calibrated_{how}", [
+                "--arch", arch, "--requests", "8", "--tokens", "32",
+                "--prompt-len", "48", "--serve-mode", "speculative",
+                "--max-len", str(CALIB_MAX_LEN), "--calibration", how,
+                "--calibration-path", str(calib / f"{arch}_serve.json")]))
+    return out
+
+
+def run_cli(argv) -> None:
+    from repro_torch.launch.serve import build_parser, check_args, serve
+    (OUT / "calibration").mkdir(parents=True, exist_ok=True)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    check_args(ap, args)
+    serve(args)
+
+
+def report_card(card) -> None:
+    """Read back the wall-clock replay's scorecard and check it."""
+    data = json.loads((OUT / "BENCH_serving_h100.json").read_text())
+    m = data["metrics"]
+    if (data["clock"] != "wall" or m["completed"] + m["rejected"]
+            != data["pinned"]["trace_requests"] or m["completed"] < 1):
+        raise AssertionError(f"pinned replay scorecard: {data}")
+    print(f"scorecard BENCH_serving_h100.json ({data['device']}, "
+          f"{data['clock']} clock): {m['completed']} completed, "
+          f"{m['rejected']} rejected, {m['tokens']} tokens in "
+          f"{data['makespan_s']:.4f} s; TTFT p50/p95 "
+          f"{1e3 * m['ttft_p50_s']:.2f} / {1e3 * m['ttft_p95_s']:.2f} ms, "
+          f"ITL p50/p95 {1e3 * m['itl_p50_s']:.2f} / "
+          f"{1e3 * m['itl_p95_s']:.2f} ms, goodput "
+          f"{m['goodput_tok_s']:.1f} of {m['throughput_tok_s']:.1f} tok/s; "
+          + "; ".join(f"{c}: goodput {g['goodput_tok_s']:.1f} tok/s, "
+                      f"attainment {g['slo_attainment']}"
+                      for c, g in m["per_class"].items()) + f" [{card}]")
+
+
+def print_summary(card) -> None:
+    """Eager beside captured tok/s, idle shares, and the calibration
+    table (measured beside analytic beside idle-compute)."""
+    print(f"summary: serving tok/s [{card}]")
+    for name, tps, fwd, dt in SPEEDS:
+        print(f"  {name}: {tps:.1f} tok/s ({fwd} forwards, {dt:.3f} s)")
+    print(f"summary: device idle share under the profiler [{card}]")
+    for label, idle in IDLE.items():
+        print(f"  {label}: {idle:.1f}%")
+    print(f"summary: NFP calibration (4 slots; measured N_max / analytic "
+          f"budget (limiting term) / n_idle / noise) [{card}]")
+    for arch, rows in CALIBRATION.items():
+        print(f"  {arch}: " + "; ".join(
+            f"L={r['ell']}: {r['measured']} / {r['analytic']} "
+            f"({r['limiting']}) / {r['n_idle']:.1f} / {r['noise']:.4f}"
+            for r in rows))
+
+
 def main() -> int:
+    global OUT
+    ap = argparse.ArgumentParser(description="Smoke test of the port on "
+                                 "one NVIDIA GPU")
+    ap.add_argument("--out", type=Path, default=OUT,
+                    help="directory for the replay scorecard and the "
+                         "calibration tables")
+    OUT = ap.parse_args().out.resolve()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -1818,6 +2258,7 @@ def main() -> int:
     from repro_torch.kernels.moe_ffn import ops as moe_ops
     from repro_torch.models import moe
 
+    t_start = time.perf_counter()
     # 1. device
     card = card_line()
     print(f"device: {card} (torch {torch.__version__}, CUDA "
@@ -1837,6 +2278,7 @@ def main() -> int:
                 print(f"    {line.strip()}")
 
     # 3. kernels
+    t0 = time.perf_counter()
     err = check_kernels(ops)
     floor = launch_floor_ms()
     print(f"  launch floor (one-element add_ under the same timing): "
@@ -1901,6 +2343,8 @@ def main() -> int:
                       for n, (ms, sp) in scan_times["staircase"].items())
           + f" [{card}]")
 
+    print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+
     # 4. serving
     from repro_torch.serving import DecodeEngine, PagedKVConfig, ServingLoop
     from repro_torch.serving import diffusion as diff_mod
@@ -1919,12 +2363,32 @@ def main() -> int:
             ("llada_mini_like", functools.partial(
                 serve_parallel, f32_layers=LLADA_F32_LAYERS),
              MOE_FORWARD_RTOL)):
+        t0 = time.perf_counter()
         for run, launches in serve(mods, arch, card, rtol).items():
             runs[f"{arch.split('_')[0]}_{run}"] = launches
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
 
-    # 5. report
+    # 5. the pinned trace replay, then calibrated serving, through the CLI
+    fns = {"dense": ops.decode_attention_ragged,
+           "paged": ops.decode_attention_paged,
+           "moe": moe_ops.grouped_ffn_padded,
+           "scan": scan_ops.selective_scan_padded}
+    for run, argv in cli_runs():
+        print(f"cli {run}: python -m repro_torch.launch.serve "
+              + " ".join(argv), flush=True)
+        t0 = time.perf_counter()
+        run_cli(argv)
+        runs[run] = {k: fn.launches for k, fn in fns.items()}
+        print(f"cli {run}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{runs[run]} [{card}]")
+        gc.collect()
+        torch.cuda.empty_cache()
+    report_card(card)
+    print_summary(card)
+
+    # 6. report
     src = "src/repro_torch/csrc/decode_attention.cu"
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1975,6 +2439,8 @@ def main() -> int:
         "staircase_ms": {n: ms for n, (ms, _) in
                          scan_times["staircase"].items()}})
     print(json.dumps({"kernels": kernels}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
+          "time")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

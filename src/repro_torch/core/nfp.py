@@ -66,6 +66,13 @@ class NFPPrediction:
     terms: Dict[str, float]       # every module-level term
     n_idle: float                 # pure idle-compute prediction (baseline)
 
+    @property
+    def overprediction(self) -> float:
+        """How much the idle-compute intuition over-predicts (Table 24)."""
+        if not math.isfinite(self.n_idle):
+            return INF
+        return self.n_idle / self.n_max if self.n_max > 0 else INF
+
 
 def predict_model(cfg: ArchConfig, hw: HardwareSpec, gran: GranularitySpec,
                   b: int, ell: int, routing: str = "balanced",

@@ -16,11 +16,20 @@ causal mask hides until a later forward overwrites it.  Prefill writes
 only the rows of its group, so rows outside it stay bitwise unchanged.
 
 Recurrent SSM state has no length mask, so it is never written in place
-by a decode forward: ``forward`` returns new states and ``commit_slots``
-keeps the old one for every row that advanced 0.  SSM models prefill at
+by a decode forward: ``forward`` returns new states, and the engine
+copies them into its cache's state tensors on commit (``commit_slots``
+keeps the old state of every row that advanced 0).  The cache's tensors
+are allocated once and never rebound.  SSM models prefill at
 exact prompt lengths (bucket padding would run through the recurrence)
 and every prefill starts from a zero state, so a reused slot carries
 nothing of its previous request.  They serve on the dense cache only.
+
+On a CUDA engine ``decode_slots`` replays a captured CUDA graph per
+decode width (``serving.capture``; ``capture=False`` keeps the eager
+forward).  Prefill and the single-request drivers stay eager.  The
+captured step reads the tokens, ``slot_lens``, the block tables and the
+cache from static buffers, so every update to them is an in-place copy;
+its outputs are valid until the next ``decode_slots``.
 """
 from __future__ import annotations
 
@@ -38,6 +47,7 @@ from repro_torch.core.nfp import parallelism_budget
 from repro_torch.models.transformer import (check_ported, forward, has_ssm,
                                             init_cache, init_paged_cache,
                                             make_segments)
+from repro_torch.serving.capture import DecodeGraphs
 from repro_torch.serving.paged import BlockManager, PagedKVConfig
 
 Tensor = torch.Tensor
@@ -77,8 +87,10 @@ class DecodeEngine:
     shared blocks.  The single-request drivers stay dense.
 
     ``device`` defaults to ``cuda`` (raising where there is none);
-    ``use_kernel`` defaults to True exactly when the device is CUDA.
-    ``params`` must already live on the device."""
+    ``use_kernel`` and ``capture`` (``decode_slots`` replays a CUDA graph
+    per width) default to True exactly when the device is CUDA, and
+    ``capture=True`` elsewhere raises.  ``params`` must already live on
+    the device."""
 
     cfg: ArchConfig
     params: Dict
@@ -88,6 +100,7 @@ class DecodeEngine:
     use_kernel: Optional[bool] = None
     paged: Optional[PagedKVConfig] = None
     device: DeviceLike = None
+    capture: Optional[bool] = None
     cache: Dict = field(init=False)
     # committed positions of the single-request drivers: a HOST int, read
     # by every step's budget decision without touching the device
@@ -101,6 +114,10 @@ class DecodeEngine:
         self.device = resolve_device(self.device)
         if self.use_kernel is None:
             self.use_kernel = self.device.type == "cuda"
+        if self.capture is None:
+            self.capture = self.device.type == "cuda"
+        self.graphs = (DecodeGraphs(self.device, self._decode_forward)
+                       if self.capture else None)
         table = self.params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine "
@@ -131,7 +148,10 @@ class DecodeEngine:
         self.slot_lens = torch.zeros((self.batch,), dtype=torch.int32,
                                      device=self.device)
         self.slot_lens_host = np.zeros((self.batch,), np.int64)
+        # device copy of the block tables (a static buffer), refreshed
+        # from the BlockManager's host tables when they change
         self._bt_device: Optional[Tensor] = None
+        self._bt_stale = True
         self._peeked = 0                       # positions of the last peek
         self.prefill_log: List[Dict] = []
 
@@ -142,11 +162,32 @@ class DecodeEngine:
                 "serves through prefill_slots/decode_slots/commit_slots")
 
     def _device_tables(self) -> Tensor:
-        """Device copy of the block tables, cached between admissions."""
-        if self._bt_device is None:
-            self._bt_device = torch.as_tensor(self.manager.device_tables(),
-                                              device=self.device)
+        """Device copy of the block tables: one buffer, copied into from
+        the host tables after every admission, release and preemption."""
+        if self._bt_stale:
+            tables = torch.from_numpy(self.manager.device_tables())
+            if self._bt_device is None:
+                self._bt_device = tables.to(self.device)
+            else:
+                self._bt_device.copy_(tables)
+            self._bt_stale = False
         return self._bt_device
+
+    def _adopt_states(self, new_cache: Dict,
+                      keep: Optional[Tensor] = None) -> None:
+        """Copy a forward's new SSM states into the cache's own state
+        tensors (rows where ``keep`` (b,) is False keep their old state).
+        Attention leaves need nothing: the forward wrote them in place."""
+        for (kind, _), old, new in zip(make_segments(self.cfg),
+                                       self.cache["segments"],
+                                       new_cache["segments"]):
+            if kind != LAYER_SSM:
+                continue
+            for k, v in new.items():
+                if keep is not None:
+                    v = torch.where(
+                        keep.view((1, -1) + (1,) * (v.dim() - 2)), v, old[k])
+                old[k].copy_(v)
 
     def _tokens(self, toks) -> Tensor:
         return torch.as_tensor(np.array(toks, np.int64),
@@ -170,9 +211,10 @@ class DecodeEngine:
         """tokens: (b, prompt_len).  Returns last-position logits and keeps
         the last position's final-norm hidden state in ``last_hidden``."""
         self._require_dense("prefill")
-        logits, self.cache, _, hidden = forward(
+        logits, new_cache, _, hidden = forward(
             self.params, self.cfg, {"tokens": tokens}, mode="prefill",
             cache=self.cache, use_kernel=self.use_kernel)
+        self._adopt_states(new_cache)
         self.cache_len = int(tokens.shape[1])
         self.last_hidden = hidden[:, -1]
         return logits[:, -1]
@@ -196,7 +238,7 @@ class DecodeEngine:
             cache=self.cache, cache_len=self.cache_len,
             use_kernel=self.use_kernel)
         if adv > 0:
-            self.cache = new_cache
+            self._adopt_states(new_cache)
         self.cache_len += adv
         return logits
 
@@ -227,7 +269,7 @@ class DecodeEngine:
                 "positions needs the recurrent state after each position, "
                 "which is not kept")
         if n > 0:
-            self.cache = new_cache
+            self._adopt_states(new_cache)
         self.cache_len += n
 
     def greedy_generate(self, prompt: Tensor, steps: int) -> Tensor:
@@ -341,7 +383,7 @@ class DecodeEngine:
         for s in sorted(toks):
             r = min(int(reserve.get(s, self.max_len)), self.max_len)
             plans[s] = mgr.admit(s, toks[s].tolist(), max(r, lens[s]))
-        self._bt_device = None                 # tables changed
+        self._bt_stale = True                  # tables changed
         cows = [c for s in sorted(toks) for c in plans[s].cow_copies]
         if cows:
             _copy_pool_blocks(
@@ -383,8 +425,9 @@ class DecodeEngine:
             for s in hits:
                 grid[s, :suf[s]] = toks[s][plans[s].cached_len:]
             # rows outside the hit group write past their own committed
-            # length (or into the trash page), which no mask reads back
-            logits, _, hidden = self.decode_slots(self._tokens(grid))
+            # length (or into the trash page), which no mask reads back;
+            # a prefill, so eager (its widths are prompt buckets)
+            logits, _, hidden = self._decode_forward(self._tokens(grid))
             for s in hits:
                 self._set_slot_len(s, lens[s])
                 out[s] = (logits[s, suf[s] - 1], hidden[s, suf[s] - 1])
@@ -407,7 +450,32 @@ class DecodeEngine:
         ``commit_slots``.  tokens: (batch, n).  Returns (logits, cache,
         hidden).  With ``use_kernel`` the per-slot lengths (and,
         paged, the block tables) go to ONE decode-attention launch per
-        layer for the whole mixed-length batch."""
+        layer for the whole mixed-length batch.
+
+        With ``capture`` this replays the width's CUDA graph: the outputs
+        are the graph's and the next ``decode_slots`` overwrites them."""
+        if self.manager is not None:
+            self._device_tables()              # refresh before a replay
+        if self.graphs is None:
+            return self._decode_forward(tokens)
+        return self.graphs.replay(tokens, self.use_kernel)
+
+    def warm_decode(self, widths) -> None:
+        """Capture the decode graphs of ``widths`` ahead of serving or
+        timing, so no capture lands inside a timed step (a no-op without
+        capture).  A capture's warm-up forward writes K/V at or past every
+        slot's committed length, which no mask reads before a later
+        forward overwrites it."""
+        if self.graphs is None:
+            return
+        if self.manager is not None:
+            self._device_tables()
+        for n in widths:
+            self.graphs.warm((self.batch, int(n)), self.use_kernel)
+
+    def _decode_forward(self, tokens: Tensor
+                        ) -> Tuple[Tensor, Dict, Tensor]:
+        """The eager decode forward over the engine's static buffers."""
         tables = self._device_tables() if self.manager is not None else None
         logits, cache, _, hidden = forward(
             self.params, self.cfg, {"tokens": tokens}, mode="decode",
@@ -424,29 +492,21 @@ class DecodeEngine:
         so adopting the cache wholesale equals the reference's per-row
         selection, dense or paged.  SSM states are selected per row, as the
         reference does: a row that advanced 0 keeps its old state (the
-        mask goes to the device from the host advances, no sync)."""
+        mask goes to the device from the host advances, no sync), and the
+        selected states are copied into the cache's own state tensors,
+        where the next (captured) forward reads them."""
         adv_host = np.asarray(advances, np.int64)
         self.slot_lens_host = self.slot_lens_host + adv_host
         if self.recurrent:
-            keep = torch.as_tensor(adv_host > 0, device=self.device)
-            segs = []
-            for (kind, _), old, new in zip(make_segments(self.cfg),
-                                           self.cache["segments"],
-                                           new_cache["segments"]):
-                if kind == LAYER_SSM:
-                    new = {k: torch.where(
-                        keep.view((1, -1) + (1,) * (v.dim() - 2)), v, old[k])
-                        for k, v in new.items()}
-                segs.append(new)
-            new_cache = {"segments": segs}
-        self.cache = new_cache
+            self._adopt_states(new_cache, torch.as_tensor(
+                adv_host > 0, device=self.device))
         self.slot_lens += torch.as_tensor(adv_host, dtype=torch.int32,
                                           device=self.device)
 
     def release_slot(self, slot: int) -> None:
         if self.manager is not None:
             self.manager.release(slot)
-            self._bt_device = None             # tables changed
+            self._bt_stale = True              # tables changed
         self._set_slot_len(slot, 0)
 
     def preempt_slot(self, slot: int) -> None:
@@ -455,5 +515,5 @@ class DecodeEngine:
         re-admission recomputes the KV from the request's host context."""
         if self.manager is not None:
             self.manager.preempt(slot)
-            self._bt_device = None             # tables changed
+            self._bt_stale = True              # tables changed
         self._set_slot_len(slot, 0)

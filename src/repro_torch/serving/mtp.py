@@ -120,4 +120,6 @@ class MTPSlotAdapter(SlotAdapter):
                 for i, s in enumerate(rows)}
 
     def observe(self, req, k: int, hidden) -> None:
-        req.hidden = hidden[k]
+        # a copy: ``hidden`` may be a captured step's output, which the
+        # next replay overwrites
+        req.hidden = hidden[k].clone()

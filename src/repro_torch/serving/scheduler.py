@@ -33,13 +33,18 @@ Load-pressure policies, as in the reference: ``submit`` backpressure
 (bounded waiting queue -> ``AdmissionRejected``), SLO-class priority
 admission, and ``preempt`` with recompute-on-resume.  Admission runs at
 the arrival boundary (``run`` calls ``admit``); ``step`` only decodes.
+
+Budget control, as in the reference: a ``controller``
+(``autotune.BudgetController``) refines the analytic budget per step
+against the step latency the loop observes, and a ``step_clock`` model
+(``core.simulate``) can stand in for the wall clock.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,17 +64,22 @@ Tensor = torch.Tensor
 
 @dataclass(frozen=True)
 class SLOClass:
-    """One multi-tenant service class and its admission priority.  (The
-    reference's latency targets come back with the load harness.)"""
+    """One multi-tenant service class: admission priority plus the
+    latency targets ``loadgen.stats`` scores goodput against."""
 
     name: str
     priority: int = 0                  # higher admits first, preempts lower
+    ttft_target_s: float = float("inf")
+    itl_target_s: float = float("inf")
 
 
-#: interactive beats default beats batch in admission order
+#: interactive beats default beats batch in admission order; the targets
+#: are the reference's, so a replay scores goodput as the reference does
 DEFAULT_SLO_CLASSES: Dict[str, SLOClass] = {
-    "interactive": SLOClass("interactive", priority=10),
-    "default": SLOClass("default", priority=0),
+    "interactive": SLOClass("interactive", priority=10,
+                            ttft_target_s=0.5, itl_target_s=0.05),
+    "default": SLOClass("default", priority=0,
+                        ttft_target_s=2.0, itl_target_s=0.2),
     "batch": SLOClass("batch", priority=-10),
 }
 
@@ -130,41 +140,63 @@ class Request:
 class ServingLoop:
     """Multiplex concurrent requests through one shared DecodeEngine.
 
-    ``mode`` selects the per-slot adapter; ``mtp_heads`` feeds the mtp
-    adapter, ``block_size`` / ``refine_steps`` / ``mask_id`` the diffusion
-    one."""
+    ``mode`` selects the per-slot adapter, or ``adapter=`` plugs in a
+    ``SlotAdapter`` instance (it receives this loop as its ``loop``; its
+    ``mode`` names the loop's).  ``mtp_heads`` feeds the mtp adapter, ``block_size`` /
+    ``refine_steps`` / ``mask_id`` the diffusion one.
+
+    ``controller`` (an ``autotune.BudgetController``) replaces the raw
+    analytic budget per step: the analytic value stays the hard cap, and
+    the controller shrinks and probes inside it against the observed
+    step latency (admission keeps the analytic gate).  ``step_clock(width,
+    ell) -> seconds`` substitutes a latency model for the wall clock, one
+    call per forward of a step."""
 
     MODES = ("greedy", "speculative", "diffusion", "mtp")
 
     def __init__(self, engine: DecodeEngine, mode: str = "greedy",
                  eps: float = 0.2, max_width: int = 16,
+                 adapter: Optional[SlotAdapter] = None,
                  mtp_heads: Optional[Dict] = None,
                  block_size: Optional[int] = None, refine_steps: int = 4,
                  mask_id: Optional[int] = None,
+                 controller=None,
+                 step_clock: Optional[Callable[[int, int], float]] = None,
                  admission: Optional[AdmissionConfig] = None):
         self.engine = engine
         self.eps = eps
         self.max_width = max_width
+        self.controller = controller
+        self.step_clock = step_clock
         self.admission = admission if admission is not None \
             else AdmissionConfig()
-        if mode not in self.MODES:
-            raise ValueError(f"unknown serving mode {mode!r}")
-        if mode != "greedy" and engine.recurrent:
+        if adapter is None:
+            if mode not in self.MODES:
+                raise ValueError(f"unknown serving mode {mode!r}")
+            if mode == "speculative":
+                adapter = SpeculativeSlotAdapter(self)
+            elif mode == "mtp":
+                adapter = MTPSlotAdapter(self, mtp_heads)
+            elif mode == "diffusion":
+                adapter = DiffusionSlotAdapter(
+                    self, block_size=block_size, refine_steps=refine_steps,
+                    mask_id=mask_id)
+            else:
+                adapter = SlotAdapter(self)
+        adapter.loop = self
+        if adapter.mode != "greedy" and engine.recurrent:
             raise ValueError(
-                f"serving mode {mode!r} on {engine.cfg.name}: its recurrent "
-                "SSM state would take in the rejected or masked positions "
-                "of every multi-position forward; serve it greedy")
-        if mode == "speculative":
-            self.adapter = SpeculativeSlotAdapter(self)
-        elif mode == "mtp":
-            self.adapter = MTPSlotAdapter(self, mtp_heads)
-        elif mode == "diffusion":
-            self.adapter = DiffusionSlotAdapter(
-                self, block_size=block_size, refine_steps=refine_steps,
-                mask_id=mask_id)
-        else:
-            self.adapter = SlotAdapter(self)
-        self.mode = mode
+                f"serving mode {adapter.mode!r} on {engine.cfg.name}: its "
+                "recurrent SSM state would take in the rejected or masked "
+                "positions of every multi-position forward; serve it "
+                "greedy")
+        self.adapter = adapter
+        self.mode = adapter.mode
+        if controller is not None:
+            controller.bind(self.mode, engine.use_kernel,
+                            clocked=step_clock is not None)
+        # budget provenance of the CURRENT step (set by ``budget()``,
+        # read by ``shared_forward`` telemetry and ``step`` timing)
         self._budget_info: Dict = {}
         self.waiting: Deque[Request] = deque()
         self.active: Dict[int, Request] = {}            # slot -> request
@@ -222,13 +254,24 @@ class ServingLoop:
 
     # ------------------------------------------------------------------
     def budget(self) -> int:
-        """Analytic NFP budget at the CURRENT longest active context,
-        read from the engine's host mirror of the slot lengths."""
+        """Position budget at the CURRENT longest active context: the
+        analytic NFP budget, refined by the controller when one is
+        attached (analytic / calibrated / applied provenance lands in
+        each forward's ``step_log`` entry).  Reads the engine's host
+        mirror of the slot lengths, never the device."""
         lens = self.engine.slot_lens_host
         ell = max(int(lens.max()) if lens.size else 1, 1)
         analytic = self.engine.nfp_budget(self.eps, ell=ell)
-        self._budget_info = {"ell": ell, "analytic": analytic}
-        return analytic
+        info = {"ell": ell, "analytic": analytic, "applied": analytic}
+        if self.controller is not None:
+            info["applied"] = self.controller.budget(
+                ell, len(self.active), analytic)
+            calibrated = self.controller.table_budget(
+                ell, len(self.active), analytic)
+            if calibrated is not None:
+                info["calibrated"] = calibrated
+        self._budget_info = info
+        return info["applied"]
 
     def _reserve_len(self, req: Request) -> int:
         """Cache positions a request can touch over its lifetime."""
@@ -377,6 +420,8 @@ class ServingLoop:
             "budget_analytic": self._budget_info.get("analytic", budget),
             "ell": self._budget_info.get("ell", 1),
         }
+        if "calibrated" in self._budget_info:
+            entry["budget_calibrated"] = self._budget_info["calibrated"]
         if self.engine.manager is not None:
             entry["kv_blocks_used"] = self.engine.manager.blocks_used()
         slack = self._attn_slack(width)
@@ -406,10 +451,24 @@ class ServingLoop:
         mark = len(self.step_log)
         t0 = time.perf_counter()
         self.adapter.run_step(slots, width, budget)
+        # --- step latency + controller feedback ------------------------
         # run_step waits on its token readback, so the host clock spans
-        # the step's device work
-        if len(self.step_log) > mark:
-            self.step_log[-1]["step_latency_s"] = time.perf_counter() - t0
+        # the step's device work; step_clock substitutes a latency model
+        # per forward
+        dt = time.perf_counter() - t0
+        new = self.step_log[mark:]
+        if new:
+            if self.step_clock is not None:
+                ell = self._budget_info.get("ell", 1)
+                dt = sum(self.step_clock(e["width"], ell) for e in new)
+            new[-1]["step_latency_s"] = dt
+            if self.controller is not None:
+                ratio = self.controller.observe(
+                    self._budget_info.get("ell", 1),
+                    max(e["width"] for e in new), dt / len(new))
+                if ratio is not None:
+                    new[-1]["latency_ratio"] = ratio
+        # --- retire ----------------------------------------------------
         for s in slots:
             req = self.active[s]
             if len(req.generated) >= req.max_tokens:
@@ -462,13 +521,31 @@ class ServingLoop:
             out.update(self.engine.manager.stats())
             out["prefill_positions_saved"] = sum(
                 e.get("cached_tokens", 0) for e in prefills)
+        # budget provenance: what the analytic predictor said, what the
+        # calibration table said, what was spent — plus the controller's
+        # observed-latency accounting when one is attached
         if self.step_log:
             out["mean_budget"] = (sum(e["budget"] for e in self.step_log)
                                   / len(self.step_log))
+            out["mean_budget_analytic"] = (
+                sum(e.get("budget_analytic", e["budget"])
+                    for e in self.step_log) / len(self.step_log))
+            calibrated = [e["budget_calibrated"] for e in self.step_log
+                          if "budget_calibrated" in e]
+            if calibrated:
+                out["mean_budget_calibrated"] = (sum(calibrated)
+                                                 / len(calibrated))
         latencies = [e["step_latency_s"] for e in self.step_log
                      if "step_latency_s" in e]
         if latencies:
             out["step_latency_total_s"] = sum(latencies)
+        ratios = [e["latency_ratio"] for e in self.step_log
+                  if "latency_ratio" in e]
+        if ratios:
+            out["mean_latency_ratio"] = sum(ratios) / len(ratios)
+            out["max_latency_ratio"] = max(ratios)
+        if self.controller is not None:
+            out["controller"] = self.controller.stats()
         slacked = [e for e in self.step_log if "kv_tile_util" in e]
         if slacked:
             out["mean_attn_row_util"] = (
