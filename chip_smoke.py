@@ -24,7 +24,14 @@ Phases, in order; any failure exits non-zero:
                 tile runs past the cache), lengths 0, 1, 127, 128, 129 and
                 full, n in {1, 16, 65}; then wedlm8b_like's diffusion
                 shapes, n = 16 and 17 at serving lengths 48-112 in both
-                modes; the executed kv tiles must equal slack_report's.  The fused grouped MoE FFN against its
+                modes; then the geometries (h, kv, dh) = (48, 8, 128)
+                mixtral_8x22b, (24, 2, 128) starcoder2_3b, (40, 10, 128)
+                phi3_medium_14b and (32, 32, 96) phi3_vision_4p2b, n in
+                {1, 16, 17}, with and without a window, both modes; then
+                mixtral's window of 4096 at lengths 4095, 4096, 4097, 4352
+                and 4600 in a 4608-position cache (tiles skipped below
+                the window); the executed kv tiles must equal
+                slack_report's.  The fused grouped MoE FFN against its
                 plain version at granite shapes (E 40, top-8, d 1536, f
                 512, swiglu) for T in {1, 4, 16, 40, 41, 256} under
                 balanced, skewed and router routing, every row on one
@@ -32,7 +39,8 @@ Phases, in order; any failure exits non-zero:
                 41) and llada_mini_like shapes (E 256, top-8, d 2048, f
                 512) at T = 4 and at its serving T's: decode 4 x (w + 1)
                 = 64 and 68, prefill 4 x 48 = 192 and the 64-position
-                bucket's 256;
+                bucket's 256, and mixtral_8x22b's (E 8, top-2, d 6144, f
+                16384) at T = 4 and 256;
                 executed blocks must equal sum ceil(g_e / token_block), and
                 a row must give bitwise the same output at T = 1 and T = 41
                 (junk in the padding rows).
@@ -43,8 +51,9 @@ Phases, in order; any failure exits non-zero:
                 nonzero h0: y and the final state, and the state after the
                 s real positions bitwise the same under two paddings.  Then
                 times each kernel (decode attention at n = 1 and 16 at
-                stablelm_3b's shapes and n = 17 at wedlm8b_like's; the MoE
-                FFN at granite's and llada's decode and prefill), its
+                stablelm_3b's shapes, n = 17 at wedlm8b_like's and n = 1
+                and 16 at the four new geometries; the MoE FFN at
+                granite's, llada's and mixtral's decode and prefill), its
                 plain version and a library call
                 (scaled_dot_product_attention; torch._grouped_mm; none
                 computes a selective scan), never called by the port, the
@@ -113,7 +122,26 @@ Phases, in order; any failure exits non-zero:
                 falcon its bf16 dense greedy) is repeated eagerly
                 (``capture=False``) in the same call: streams identical,
                 tok/s and the profiled idle share printed side by side.
-                Then each model's NFP calibration on the card:
+                Then five more attention-only models, seeded random bf16
+                weights: minicpm3_4b (MLA, full
+                size; no decode-attention kernel runs, so its launch
+                counts are 0) as stablelm_3b without the dense
+                speculative run; mixtral_8x22b (sliding window 4096, MoE
+                E 8 top-2) at full width and 8 of its 56 layers, the same
+                runs, then past its window: 2 slots of 4608 positions
+                serve 3 requests of 4352-token prompts (a 4096-token
+                shared prefix) paged and dense, a kernel-vs-plain forward
+                there with the device tile count equal to slack_report's
+                and below the grid, and the ring buffer
+                (``init_cache(swa_ring=True)``, 4224 slots) against the
+                full cache over decode blocks of 1-16 positions across
+                its seam; starcoder2_3b, phi3_medium_14b and
+                phi3_vision_4p2b at full size, lighter: the capture
+                check, paged and dense greedy with their stream
+                comparison and the forward check.  Each phase prints its
+                device memory peak.
+                Each model but the three lighter ones then takes its NFP
+                calibration on the card:
                 ``calibrate_engine`` (wall clock, CUDA events, the
                 captured step) on a dense 4-slot engine of 1024 positions
                 over ``width_grid(128)`` at buckets 64, 256 and 896, its
@@ -129,7 +157,7 @@ Phases, in order; any failure exits non-zero:
                 with ``--calibration run`` and then ``load`` (applied and
                 analytic mean budgets, latency ratios).  A summary of
                 eager vs captured tok/s, idle shares and the calibration
-                table follows.
+                table and the memory peaks follow.
   6. report   — one JSON line of kernels (launches summed over every run
                 above), the command time, the card line, and the final
                 {"ok": true, ...} line.
@@ -163,6 +191,16 @@ KERNEL_RTOL = 2e-2
 # whose f32 sums cancel terms of magnitude ~100, move by ~1e-3 absolute
 MOE_ATOL = 2e-2
 MOE_RTOL = 2 * 2.0 ** -8
+# the same rule at mixtral_8x22b's width (d 6144, f 16384), where outputs
+# reach an rms of ~2e4: an output is a sum of f = 16384 terms of magnitude
+# ~1e2 (each a product of a sum over d = 6144), so a near-zero output
+# moves with those sums' rounding (tensor-core f32 accumulation, h carried
+# as hi + lo to 2^-16), which scales with the terms and the rows' rms, not
+# with the output itself.  MOE_ATOL is that absolute term at granite's
+# width (outputs of rms ~1.4e2, moving by ~1e-3); at mixtral's it is
+# 2^-10 of the rows' rms, and the kernel is also held against the same
+# FFN computed in float64
+MOE_WIDE_ATOL_RMS = 2.0 ** -10
 # kernel vs plain versions inside the full model: each layer's attention
 # output differs by bf16 rounding, and 32 residual layers carry it on
 # (measured 1.7e-2 relative on an H100)
@@ -235,8 +273,24 @@ MAX_LEN = 256
 # (E, top-k, d_model, expert d_ff)
 GRANITE_MOE = (40, 8, 1536, 512)
 LLADA_MOE = (256, 8, 2048, 512)
+MIXTRAL_MOE = (8, 2, 6144, 16384)
 # falcon_mamba_7b's scan: (d_inner, d_state)
 FALCON_SCAN = (8192, 16)
+# decode-attention geometries (h, kv, dh) of mixtral_8x22b, starcoder2_3b,
+# phi3_medium_14b and phi3_vision_4p2b: GQA g = 6 (96 rows at n = 16),
+# g = 12 (192 rows: three 64-row passes), g = 4 at 40 heads, MHA at dh 96
+NEW_GEOMETRIES = {"mixtral_8x22b": (48, 8, 128),
+                  "starcoder2_3b": (24, 2, 128),
+                  "phi3_medium_14b": (40, 10, 128),
+                  "phi3_vision_4p2b": (32, 32, 96)}
+# mixtral_8x22b's sliding window and its long-context runs: 4352-token
+# prompts (256 positions past the window) in a 4608-position cache
+MIXTRAL_WINDOW = 4096
+LONG_MAX_LEN = 4608
+LONG_PROMPT = 4352
+# mixtral_8x22b runs at full width and this depth (8 of its 56 layers:
+# 2.0e10 parameters, 41 GB in bf16; the full depth needs ~281 GB)
+MIXTRAL_LAYERS = 8
 # captured vs eager decode_slots: the widths held bitwise equal
 CAPTURE_WIDTHS = (1, 5, 16, 17)
 # the calibration engines: 4 slots, a dense cache of this length (buckets
@@ -245,10 +299,11 @@ CALIB_MAX_LEN = 1024
 # where the scorecard and calibration tables go (``--out``)
 OUT = ROOT / "build" / "chip_smoke"
 # run name -> (tok/s, forwards, seconds) and profile label -> idle %, for
-# the summary; calibration rows by model
+# the summary; calibration rows by model; device memory peak (GB) by phase
 SPEEDS = []
 IDLE = {}
 CALIBRATION = {}
+MEMORY = {}
 
 
 def card_line() -> str:
@@ -371,6 +426,7 @@ def check_kernels(ops) -> dict:
             raise AssertionError(f"{where}: kernel ran {int(tiles.item())} kv "
                                  f"tiles, slack_report says {want}")
         cases += 1
+        return rep
 
     for h, kv, dh in shapes.values():
         for paged in (False, True):
@@ -406,6 +462,26 @@ def check_kernels(ops) -> dict:
             for lens in ([48, 64, 96, 112], [48, 63, 79, 111]):
                 run(paged, n, h, kv, dh, lens, None,
                     "fragmented" if paged else "")
+    # mixtral's, starcoder2's, phi3_medium's and phi3_vision's geometries,
+    # at an empty, a short, a long and a full row, one m-tile and two
+    for h, kv, dh in NEW_GEOMETRIES.values():
+        for paged in (False, True):
+            for n in (1, 16, 17):
+                for window in (None, 48):
+                    run(paged, n, h, kv, dh, [0, 37, 150, MAX_LEN - n],
+                        window, "fragmented" if paged else "")
+    # mixtral's window of 4096 past the window, in a 4608-position cache:
+    # the skip rule's lower bound drops the first tiles (at 4352, 2 dense
+    # tiles or 16 pages), so fewer tiles run than the grid holds
+    h, kv, dh = NEW_GEOMETRIES["mixtral_8x22b"]
+    for paged in (False, True):
+        for n in (1, 16, 17):
+            lens = [4095, 4096, 4097, 4352, min(4600, LONG_MAX_LEN - n)]
+            rep = run(paged, n, h, kv, dh, lens, MIXTRAL_WINDOW,
+                      "fragmented" if paged else "", LONG_MAX_LEN)
+            if rep["kv_tiles_executed"] >= rep["kv_tiles_grid"]:
+                raise AssertionError(f"window {MIXTRAL_WINDOW} at {lens}: "
+                                     "no kv tile skipped")
     print(f"kernels: {cases} decode-attention cases agree with the plain "
           f"version within atol={KERNEL_ATOL} rtol={KERNEL_RTOL} (bf16); "
           f"executed kv tiles == slack_report; max abs err "
@@ -544,6 +620,25 @@ def moe_call(moe_ops, w, a, *, plain=False, blocks=None):
                                       activation=act, blocks=blocks)
 
 
+def moe_exact(w, a):
+    """The swiglu grouped FFN of ``a``'s valid blocks in float64, expert
+    by expert: the exact answer both the kernel and its plain version
+    approximate."""
+    F = torch.nn.functional
+    tb, x = a["tb"], a["x_pad"].double()
+    out = torch.zeros_like(x)
+    blocks = list(zip(a["be"].tolist(), a["bv"].tolist()))
+    for e in sorted({b for b, v in blocks if v}):
+        rows = torch.cat([torch.arange(i * tb, (i + 1) * tb)
+                          for i, (b, v) in enumerate(blocks)
+                          if v and b == e]).cuda()
+        xe = x[rows]
+        h = (F.silu(xe @ w["w_gate"][e].double())
+             * (xe @ w["w_up"][e].double()))
+        out[rows] = h @ w["w_down"][e].double()
+    return out
+
+
 def check_moe(moe_ops, moe) -> float:
     """Every MoE FFN case of phase 3; returns the max abs error."""
     e, k, d, f = GRANITE_MOE
@@ -565,6 +660,12 @@ def check_moe(moe_ops, moe) -> float:
     llada = moe_weights(LLADA_MOE[0], LLADA_MOE[2], LLADA_MOE[3], seed=3)
     for t in (4, 64, 68, 192, 256):
         cases.append(("llada_mini_like", llada, LLADA_MOE[1], t, "router"))
+    # mixtral_8x22b: E 8 top-2 at d 6144, f 16384 (32 f tiles), decode
+    # (4 slots) and prefill
+    mixtral = moe_weights(MIXTRAL_MOE[0], MIXTRAL_MOE[2], MIXTRAL_MOE[3],
+                          seed=9)
+    for t in (4, 256):
+        cases.append(("mixtral_8x22b", mixtral, MIXTRAL_MOE[1], t, "router"))
     err = 0.0
     for i, (name, w, k, t, routing) in enumerate(cases):
         a = moe_inputs(moe_ops, moe, w, k=k, t=t, routing=routing, seed=i)
@@ -573,9 +674,23 @@ def check_moe(moe_ops, moe) -> float:
         ref = moe_call(moe_ops, w, a, plain=True)[a["slot"]]
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
-        bad = diff > MOE_ATOL + MOE_RTOL * ref.float().abs()
-        err = max(err, float(diff.max()))
         where = f"moe {name} T={t} {routing} token_block={a['tb']}"
+        atol = MOE_ATOL
+        if name == "mixtral_8x22b":
+            rms = float(ref.float().pow(2).mean().sqrt())
+            atol = MOE_WIDE_ATOL_RMS * rms
+            exact = moe_exact(w, a)[a["slot"]]
+            to_exact = (out.double() - exact).abs()
+            plain_exact = float((ref.double() - exact).abs().max())
+            print(f"  {where}: rows' rms {rms:.4g}, atol {atol:.4g}; max "
+                  f"abs err against the plain version {float(diff.max()):.4g}"
+                  f", against float64 {float(to_exact.max()):.4g} (the plain "
+                  f"version's {plain_exact:.4g})")
+            if (to_exact > atol + MOE_RTOL * exact.abs()).any():
+                raise AssertionError(f"MoE kernel leaves the float64 FFN: "
+                                     f"{where}")
+        bad = diff > atol + MOE_RTOL * ref.float().abs()
+        err = max(err, float(diff.max()))
         if not torch.isfinite(out).all() or bad.any():
             raise AssertionError(f"MoE kernel disagrees with its plain "
                                  f"version: {where}: max abs err "
@@ -611,7 +726,9 @@ def check_moe(moe_ops, moe) -> float:
         raise AssertionError("a row's MoE output changed between T = 1 "
                              "(block 16) and T = 41 (block 64)")
     print(f"kernels: {len(cases)} MoE FFN cases agree with the plain "
-          f"version within atol={MOE_ATOL} rtol={MOE_RTOL:.4g} (bf16); "
+          f"version within atol={MOE_ATOL} (mixtral's width: "
+          f"{MOE_WIDE_ATOL_RMS:.4g} x the rows' rms) rtol={MOE_RTOL:.4g} "
+          f"(bf16); "
           f"executed blocks == sum ceil(g_e / token_block); token 0's rows "
           f"bitwise equal at T = 1 (block 16) and T = 41 (block 64); max "
           f"abs err {err:.4g}")
@@ -679,6 +796,9 @@ GRANITE_TIMES = (("decode_balanced", 4, "balanced"),
 # (4 prompts of 48)
 LLADA_TIMES = (("decode_router", 64, "router"),
                ("prefill_router", 192, "router"))
+# mixtral_8x22b's decode (4 slots x 1 token) and a prefill
+MIXTRAL_TIMES = (("decode_router", 4, "router"),
+                 ("prefill_router", 256, "router"))
 
 
 def time_moe(moe_ops, moe, weights, shape=GRANITE_MOE, runs=GRANITE_TIMES,
@@ -1037,10 +1157,19 @@ def record_gaps(loop):
     return rec
 
 
+def attn_kernel(cfg) -> bool:
+    """Whether the model's decode attention runs the kernel: GQA and
+    sliding-window GQA do; MLA (plain torch, as the reference's XLA path)
+    and attention-free models do not."""
+    return cfg.attention is not None and cfg.attention.kind != "mla"
+
+
 def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
-              loop_kw=None, prepare=None, use_kernel=True, capture=True):
-    """Serve ``prompts`` x 32 tokens on a 4-slot engine (paged with
-    ``block_size``) in ``mode`` (``loop_kw``: the ServingLoop's mode
+              loop_kw=None, prepare=None, use_kernel=True, capture=True,
+              batch=4, max_len=MAX_LEN, label=""):
+    """Serve ``prompts`` x 32 tokens on a ``batch``-slot engine of
+    ``max_len`` positions (paged with ``block_size``) in ``mode``
+    (``loop_kw``: the ServingLoop's mode
     arguments), counting every kernel's launches from 0; ``prepare(loop)``
     attaches further recorders before the run; ``use_kernel`` False runs
     the plain versions (and expects no launch); ``capture`` False runs the
@@ -1051,8 +1180,9 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
         mods[:7]
     gc.collect()                  # loops of earlier runs hold their caches
     paged = PagedKVConfig(block_size=block_size) if block_size else None
-    eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN, paged=paged,
-                       device="cuda", use_kernel=use_kernel, capture=capture)
+    eng = DecodeEngine(cfg, params, batch=batch, max_len=max_len,
+                       paged=paged, device="cuda", use_kernel=use_kernel,
+                       capture=capture)
     if eng.graphs is not None:
         capture_routes(eng)
     loop = ServingLoop(eng, mode=mode, **(loop_kw or {}))
@@ -1089,7 +1219,7 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     s = loop.stats()
     f32 = params["embed"]["table"].dtype == torch.float32
     block = (loop_kw or {}).get("block_size")
-    name = (f"{cfg.name}{' f32' if f32 else ''} "
+    name = (f"{cfg.name}{' f32' if f32 else ''}{label} "
             f"{'paged' if block_size else 'dense'} {mode}"
             f"{f' block {block}' if block else ''}"
             f"{'' if use_kernel else ' (plain versions)'}"
@@ -1104,7 +1234,7 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     is_moe = cfg.ffn.kind == "moe"
     is_ssm = cfg.ssm is not None            # attention-free: every layer SSM
     layers = cfg.n_layers
-    attn = 0 if is_ssm else layers * shaped
+    attn = layers * shaped if attn_kernel(cfg) else 0
     want = {"dense": 0 if block_size else attn,
             "paged": attn if block_size else 0,
             "moe": layers * every if is_moe else 0,
@@ -1382,6 +1512,9 @@ def check_capture(mods, cfg, params, prompts, card) -> None:
     DecodeEngine, PagedKVConfig = mods[:2]
     pools = ((None,) if cfg.attention is None
              else (None, PagedKVConfig(block_size=16)))
+    # an MLA model with a dense FFN reaches no kernel: every count is 0
+    kernels = (attn_kernel(cfg) or cfg.ffn.kind == "moe"
+               or cfg.ssm is not None)
     for paged in pools:
         gc.collect()
         engs = [DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
@@ -1417,7 +1550,7 @@ def check_capture(mods, cfg, params, prompts, card) -> None:
             ok = (torch.equal(outs[0][0], outs[1][0])
                   and torch.equal(outs[0][1], outs[1][1]) and same_cache
                   and all(c == counts[0] for c in counts)
-                  and sum(counts[0].values()) > 0)
+                  and (sum(counts[0].values()) > 0) == kernels)
             print(f"capture {cfg.name} {mode} n={n}: logits and hidden "
                   f"bitwise equal {torch.equal(outs[0][0], outs[1][0])} / "
                   f"{torch.equal(outs[0][1], outs[1][1])}, cache after the "
@@ -1462,7 +1595,8 @@ def calibration_table(mods, cfg, params, card) -> dict:
     forwards = sum(len(e.ns) for e in table.entries) * (warmup
                                                         + rounds * iters)
     is_moe, is_ssm = cfg.ffn.kind == "moe", cfg.ssm is not None
-    want = {"dense": 0 if is_ssm else cfg.n_layers * forwards, "paged": 0,
+    want = {"dense": cfg.n_layers * forwards if attn_kernel(cfg) else 0,
+            "paged": 0,
             "moe": cfg.n_layers * forwards if is_moe else 0,
             "scan": cfg.n_layers * forwards if is_ssm else 0}
     print(f"calibration {cfg.name} ({table.backend} backend, captured "
@@ -1500,17 +1634,36 @@ def calibration_table(mods, cfg, params, card) -> dict:
     return launches
 
 
-def serve_model(mods, arch, card, forward_rtol,
-                dense_speculative=False) -> dict:
-    """Phase 4 for one model: warm-up, the three serving runs (and with
-    ``dense_speculative`` a fourth, whose verify forwards of width 16 run
-    the dense attention mode), the stream comparisons, the full-size
-    forward check and the profile.  Returns the launches by run."""
+def model_params(arch, layers=None):
+    """The full-width config (cut to ``layers`` where given) and seeded
+    random bf16 weights on the card; prints the size."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"{cfg.name}: {cfg.n_layers}"
+          f"{f' of {get_config(arch).n_layers}' if layers else ''} layers, d "
+          f"{cfg.d_model}, attention {cfg.attention.kind} "
+          f"{cfg.attention.n_heads}/{cfg.attention.n_kv_heads} x "
+          f"{cfg.attention.head_dim}, {n_params:.4g} parameters, "
+          f"{2 * n_params / 1e9:.4g} GB in bf16")
+    return cfg, params
+
+
+def serve_model(mods, arch, card, forward_rtol,
+                dense_speculative=False, layers=None,
+                long_context=False) -> dict:
+    """Phase 4 for one model: warm-up, the three serving runs (and with
+    ``dense_speculative`` a fourth, whose verify forwards of width 16 run
+    the dense attention mode), the stream comparisons, the full-size
+    forward check and the profile.  ``layers`` cuts the depth (full
+    width); ``long_context`` adds the runs past a sliding window
+    (``serve_long``).  Returns the launches by run."""
+    cfg, params = model_params(arch, layers)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=48) for _ in range(8)]
     prompts[5][:32] = prompts[0][:32]          # admitted later: prefix hit
@@ -1547,7 +1700,195 @@ def serve_model(mods, arch, card, forward_rtol,
                       top=4, capture=capture, host=capture)
     profile_steps(mods, cfg, params, prompts, card)
     runs["calibration"] = calibration_table(mods, cfg, params, card)
+    if long_context:
+        runs.update(serve_long(mods, cfg, params, card))
     return runs
+
+
+def serve_light(mods, arch, card, forward_rtol) -> dict:
+    """Phase 4, lighter, for a GQA model whose path the earlier models
+    already drive: the capture check, paged greedy (captured) and dense
+    greedy with their stream comparison, and the full-size forward check.
+    Returns the launches by run."""
+    cfg, params = model_params(arch)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=48) for _ in range(8)]
+    prompts[5][:32] = prompts[0][:32]          # admitted later: prefix hit
+    check_capture(mods, cfg, params, prompts, card)
+    greedy, l1, rec, routes = serve_run(mods, cfg, params, prompts,
+                                        block_size=16, mode="greedy",
+                                        card=card)
+    dense, l2, rec_dense, routes_dense = serve_run(
+        mods, cfg, params, prompts, block_size=0, mode="greedy", card=card)
+    compare_streams(f"{cfg.name} dense greedy", greedy, dense,
+                    [rec, rec_dense], (routes, routes_dense),
+                    len(prompts[0]), {5: (0, 32)})
+    check_forward(mods, cfg, params, prompts, forward_rtol)
+    return {"paged_greedy": l1, "dense_greedy": l2}
+
+
+def serve_long(mods, cfg, params, card) -> dict:
+    """A sliding-window model past its window: 2 slots of ``LONG_MAX_LEN``
+    positions serve 3 requests of ``LONG_PROMPT``-token prompts x 32
+    tokens, paged and dense greedy on the kernels (the third shares its
+    first 4096 tokens with the first: a 256-page prefix hit whose
+    256-position suffix runs as one decode-shaped forward); their streams
+    against each other; the kernel-vs-plain forward at those lengths
+    (``check_long_forward``) and the ring buffer against the full cache
+    (``check_ring``).  Returns the launches by run."""
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=LONG_PROMPT)
+               for _ in range(3)]
+    prompts[2][:MIXTRAL_WINDOW] = prompts[0][:MIXTRAL_WINDOW]
+    kw = {"batch": 2, "max_len": LONG_MAX_LEN, "label": " long"}
+    paged, l1, rec, routes = serve_run(mods, cfg, params, prompts,
+                                       block_size=16, mode="greedy",
+                                       card=card, **kw)
+    dense, l2, rec_dense, routes_dense = serve_run(
+        mods, cfg, params, prompts, block_size=0, mode="greedy", card=card,
+        **kw)
+    compare_streams(f"{cfg.name} long dense greedy", paged, dense,
+                    [rec, rec_dense], (routes, routes_dense), LONG_PROMPT,
+                    {2: (0, MIXTRAL_WINDOW)}, base="long paged greedy")
+    check_long_forward(mods, cfg, params, prompts, card)
+    check_ring(mods, cfg, params, prompts[0], card)
+    return {"long_paged_greedy": l1, "long_dense_greedy": l2}
+
+
+def check_long_forward(mods, cfg, params, prompts, card) -> None:
+    """One decode forward of width 16 over 2 slots prefilled with
+    ``LONG_PROMPT`` tokens, through the kernels and through the plain
+    versions on the same cache, dense and paged: the executed kv tiles
+    (counted on the device in every layer) must equal slack_report's for
+    the window and be fewer than the grid's, and the logits agree within
+    MOE_FORWARD_RTOL under balanced routing (printed with the router)."""
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import forward
+    DecodeEngine, PagedKVConfig, ops, moe = (mods[0], mods[1], mods[3],
+                                             mods[5])
+    a = cfg.attention
+    for paged in (None, PagedKVConfig(block_size=16)):
+        gc.collect()
+        eng = DecodeEngine(cfg, params, batch=2, max_len=LONG_MAX_LEN,
+                           paged=paged, device="cuda")
+        with Uncounted(mods):
+            eng.prefill_slots({s: prompts[s] for s in range(2)})
+        toks = torch.as_tensor(np.stack([p[:16] for p in prompts[1:3]]),
+                               device="cuda")
+        tables = eng._device_tables() if paged else None
+        t, k = toks.numel(), cfg.ffn.top_k
+        fixed = (moe.balanced_routing(t, k, cfg.ffn.n_experts,
+                                      device="cuda"),
+                 torch.full((t, k), 1.0 / k, device="cuda"))
+        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+        inner = (attn_mod.decode_attention_ragged,
+                 attn_mod.decode_attention_paged)
+
+        def run(use_kernel, routing):
+            return forward(eng.params, cfg, {"tokens": toks}, mode="decode",
+                           cache=eng.cache, cache_len=eng.slot_lens,
+                           use_kernel=use_kernel, block_tables=tables,
+                           routing_override=routing)[0].float()
+        attn_mod.decode_attention_ragged = functools.partial(inner[0],
+                                                             tiles=counter)
+        attn_mod.decode_attention_paged = functools.partial(inner[1],
+                                                            tiles=counter)
+        try:
+            with Uncounted(mods):
+                got = run(True, fixed)
+        finally:
+            (attn_mod.decode_attention_ragged,
+             attn_mod.decode_attention_paged) = inner
+        with Uncounted(mods):
+            want = run(False, fixed)
+            routed = (run(True, None), run(False, None))
+        lens = eng.slot_lens_host.tolist()
+        rep = ops.slack_report(16, lens, LONG_MAX_LEN, head_dim=a.head_dim,
+                               k_block=16 if paged else ops.K_BLOCK,
+                               window=a.window)
+        executed = int(counter.item())
+        expect = cfg.n_layers * a.n_kv_heads * rep["kv_tiles_executed"]
+        rel = float((got - want).norm() / want.norm())
+        rel_r = float((routed[0] - routed[1]).norm() / routed[1].norm())
+        mode = "paged" if paged else "dense"
+        print(f"forward {cfg.name} long {mode} (lengths {lens}, n 16, window "
+              f"{a.window}): kv tiles executed {executed} == "
+              f"{cfg.n_layers} layers x {a.n_kv_heads} kv x "
+              f"{rep['kv_tiles_executed']} (grid {rep['kv_tiles_grid']} per "
+              f"kv head and layer); logits kernels vs plain relative error "
+              f"{rel:.3g} (balanced routing, limit {MOE_FORWARD_RTOL}), "
+              f"{rel_r:.3g} with the router (not held) [{card}]")
+        if (executed != expect
+                or rep["kv_tiles_executed"] >= rep["kv_tiles_grid"]
+                or got.shape != (2, 16, cfg.vocab_size)
+                or not torch.isfinite(got).all() or rel > MOE_FORWARD_RTOL):
+            raise AssertionError(f"{cfg.name} long {mode} forward: tiles "
+                                 f"{executed} (want {expect}), relative "
+                                 f"error {rel:.3g}")
+        del eng
+
+
+# the decode blocks of the ring check: 1-16 positions, crossing the window
+# (4096) and the ring's seam (4224)
+RING_BLOCKS = (1, 16, 3, 9, 16, 2, 7, 16, 11, 5, 16, 1, 13, 16, 8, 16, 4,
+               16, 12, 16, 6, 16, 10, 16, 14, 16, 15, 16, 3, 16, 9, 16, 2,
+               16, 16, 16, 7, 16, 11, 16, 5, 16, 13, 16)
+RING_PREFILL = 4000
+
+
+def check_ring(mods, cfg, params, prompt, card) -> None:
+    """``forward(swa_ring=True)`` over ``init_cache(swa_ring=True)`` (window
+    + 128 headroom = 4224 slots) against the full 4608-position cache:
+    both prefill ``RING_PREFILL`` tokens, then decode ``RING_BLOCKS`` (1-16
+    positions each) past the window and across the ring's seam, the ring
+    wrapping.  Both run the plain versions (the ring has no kernel, as in
+    the reference), so only the cache differs.  The ring holds its keys
+    in another order, so the bf16 sums round differently: every block's
+    logits must agree within FORWARD_RTOL under balanced routing (with
+    the router, printed: a near-tie flips an expert)."""
+    from repro_torch.models import forward, init_cache
+    moe = mods[5]
+    a = cfg.attention
+    toks_all = np.concatenate([prompt, np.random.default_rng(2).integers(
+        0, cfg.vocab_size, size=LONG_MAX_LEN - len(prompt))])
+    for routed in (False, True):
+        gc.collect()
+        caches = {ring: init_cache(cfg, 1, LONG_MAX_LEN, torch.bfloat16,
+                                   "cuda", swa_ring=ring)
+                  for ring in (False, True)}
+        w_buf = caches[True]["segments"][0]["k"].shape[2]
+        first = torch.as_tensor(toks_all[None, :RING_PREFILL], device="cuda")
+        for cache in caches.values():
+            forward(params, cfg, {"tokens": first}, mode="prefill",
+                    cache=cache, use_kernel=False)
+        pos, worst = RING_PREFILL, 0.0
+        for nb in RING_BLOCKS:
+            toks = torch.as_tensor(toks_all[None, pos:pos + nb],
+                                   device="cuda")
+            fixed = None if routed else (
+                moe.balanced_routing(nb, cfg.ffn.top_k, cfg.ffn.n_experts,
+                                     device="cuda"),
+                torch.full((nb, cfg.ffn.top_k), 1.0 / cfg.ffn.top_k,
+                           device="cuda"))
+            out = {ring: forward(params, cfg, {"tokens": toks},
+                                 mode="decode", cache=cache, cache_len=pos,
+                                 use_kernel=False, swa_ring=ring,
+                                 routing_override=fixed)[0].float()
+                   for ring, cache in caches.items()}
+            worst = max(worst, float((out[True] - out[False]).norm()
+                                     / out[False].norm()))
+            pos += nb
+        print(f"ring {cfg.name}: {w_buf} slots (window {a.window} + 128), "
+              f"prefill {RING_PREFILL}, {len(RING_BLOCKS)} decode blocks of "
+              f"1-16 to position {pos} (wrapped {pos > w_buf}), largest "
+              f"per-block logits relative error against the full cache "
+              f"{worst:.3g} ({'router, not held' if routed else f'balanced routing, limit {FORWARD_RTOL}'}) [{card}]")
+        if w_buf != 4224 or pos <= w_buf or pos > LONG_MAX_LEN or (
+                not routed and worst > FORWARD_RTOL):
+            raise AssertionError(f"{cfg.name} ring buffer leaves the full "
+                                 f"cache: {worst:.3g} ({w_buf} slots, "
+                                 f"position {pos})")
+        del caches
 
 
 def same_streams(name, eager, captured) -> None:
@@ -2233,6 +2574,16 @@ def print_summary(card) -> None:
             f"L={r['ell']}: {r['measured']} / {r['analytic']} "
             f"({r['limiting']}) / {r['n_idle']:.1f} / {r['noise']:.4f}"
             for r in rows))
+    print(f"summary: device memory peak by model phase "
+          f"(torch.cuda.max_memory_allocated) [{card}]")
+    for arch, gb in MEMORY.items():
+        print(f"  {arch}: {gb:.2f} GB")
+
+
+# run-name prefix of a model's serving runs in the kernels line (the first
+# word of the arch id, where that is unique)
+RUN_PREFIX = {"phi3_medium_14b": "phi3medium",
+              "phi3_vision_4p2b": "phi3vision"}
 
 
 def main() -> int:
@@ -2300,6 +2651,22 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
                   f"executed-tile bound {r['tile_bound_ms']:.5f} ms [{card}]")
+    # mixtral's, starcoder2's, phi3_medium's and phi3_vision's geometries,
+    # at wedlm8b_like's serving lengths
+    times_new = {arch: {n: time_kernels(ops, n, shape=shape,
+                                        lens=wedlm["lens"])
+                        for n in (1, 16)}
+                 for arch, shape in NEW_GEOMETRIES.items()}
+    for arch, by_n in times_new.items():
+        h, kv, dh = NEW_GEOMETRIES[arch]
+        for n, t in by_n.items():
+            for mode, r in t.items():
+                print(f"  {mode} n={n} {arch} (h {h}, kv {kv}, dh {dh}, g "
+                      f"{h // kv}, lens {list(wedlm['lens'])}): kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, sdpa "
+                      f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
+                      f"ms ({r['bound_by']}), executed-tile bound "
+                      f"{r['tile_bound_ms']:.5f} ms [{card}]")
     moe_err = check_moe(moe_ops, moe)
     e, _, d, f = GRANITE_MOE
     moe_times = time_moe(moe_ops, moe, moe_weights(e, d, f, seed=4))
@@ -2318,6 +2685,18 @@ def main() -> int:
                            staircase=False)
     for label, r in llada_times.items():
         print(f"  moe llada_mini_like {label} (T {r['T']}, token_block "
+              f"{r['token_block']}, {r['blocks']} blocks): kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"{r['library']} {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), a torch sum over "
+              f"the active experts' weight bytes {r['read_ms']:.4f} ms "
+              f"[{card}]")
+    e, k, d, f = MIXTRAL_MOE
+    mixtral_times = time_moe(moe_ops, moe, moe_weights(e, d, f, seed=10),
+                             shape=MIXTRAL_MOE, runs=MIXTRAL_TIMES,
+                             staircase=False)
+    for label, r in mixtral_times.items():
+        print(f"  moe mixtral_8x22b {label} (T {r['T']}, token_block "
               f"{r['token_block']}, {r['blocks']} blocks): kernel "
               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"{r['library']} {r['library_ms']:.4f} ms, bound "
@@ -2343,6 +2722,10 @@ def main() -> int:
                       for n, (ms, sp) in scan_times["staircase"].items())
           + f" [{card}]")
 
+    # the MoE checks at mixtral's width leave tens of GB cached; a graph
+    # capture that had to give cached memory back would fail
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # 4. serving
@@ -2362,13 +2745,24 @@ def main() -> int:
              FORWARD_RTOL),
             ("llada_mini_like", functools.partial(
                 serve_parallel, f32_layers=LLADA_F32_LAYERS),
-             MOE_FORWARD_RTOL)):
+             MOE_FORWARD_RTOL),
+            ("minicpm3_4b", serve_model, FORWARD_RTOL),
+            ("mixtral_8x22b", functools.partial(
+                serve_model, layers=MIXTRAL_LAYERS, long_context=True),
+             MOE_FORWARD_RTOL),
+            ("starcoder2_3b", serve_light, FORWARD_RTOL),
+            ("phi3_medium_14b", serve_light, FORWARD_RTOL),
+            ("phi3_vision_4p2b", serve_light, FORWARD_RTOL)):
         t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        prefix = RUN_PREFIX.get(arch, arch.split("_")[0])
         for run, launches in serve(mods, arch, card, rtol).items():
-            runs[f"{arch.split('_')[0]}_{run}"] = launches
+            runs[f"{prefix}_{run}"] = launches
+        MEMORY[arch] = torch.cuda.max_memory_allocated() / 1e9
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"phase {arch}: {time.perf_counter() - t0:.1f} s")
+        print(f"phase {arch}: {time.perf_counter() - t0:.1f} s, device "
+              f"memory peak {MEMORY[arch]:.2f} GB [{card}]")
 
     # 5. the pinned trace replay, then calibrated serving, through the CLI
     fns = {"dense": ops.decode_attention_ragged,
@@ -2406,6 +2800,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "n16": {key: times[16][mode][key] for key in keys},
             "wedlm_n17": {key: times_wedlm[17][mode][key] for key in keys},
+            **{f"{RUN_PREFIX.get(arch, arch.split('_')[0])}_n{n}":
+               {key: t[n][mode][key] for key in keys}
+               for arch, t in times_new.items() for n in (1, 16)},
             "launch_floor_ms": floor})
     r = moe_times["decode_balanced"]
     kernels.append({
@@ -2425,6 +2822,10 @@ def main() -> int:
                              for key in keys},
         "llada_prefill_T192": {key: llada_times["prefill_router"][key]
                                for key in keys},
+        "mixtral_decode_T4": {key: mixtral_times["decode_router"][key]
+                              for key in keys},
+        "mixtral_prefill_T256": {key: mixtral_times["prefill_router"][key]
+                                 for key in keys},
         "staircase_ms": {t: ms for t, (ms, _, _) in
                          moe_times["staircase"].items()}})
     kernels.append({

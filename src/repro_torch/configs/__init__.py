@@ -10,7 +10,9 @@ import importlib
 from repro_torch.core.arch import ArchConfig
 
 ARCH_IDS = ["stablelm_3b", "wedlm8b_like", "granite_moe_3b_a800m",
-            "llada_mini_like", "falcon_mamba_7b"]
+            "llada_mini_like", "falcon_mamba_7b", "minicpm3_4b",
+            "mixtral_8x22b", "starcoder2_3b", "phi3_medium_14b",
+            "phi3_vision_4p2b"]
 
 
 def get_config(name: str, reduced: bool = False) -> ArchConfig:

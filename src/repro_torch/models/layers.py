@@ -17,9 +17,16 @@ Tensor = torch.Tensor
 
 
 def _init(gen: torch.Generator, shape: Tuple[int, ...], scale: float,
-          dtype=torch.bfloat16) -> Tensor:
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=gen.device) * scale).to(dtype)
+          dtype=torch.bfloat16, lead: Tuple[int, ...] = ()) -> Tensor:
+    """A ``lead + shape`` leaf of f32 normal draws times ``scale``, cast
+    to ``dtype``.  A stacked leaf is drawn one ``shape`` slice per leading
+    index, scaled in place and copied into the preallocated output, so the
+    f32 temporary is one layer's slice, never the whole stack."""
+    out = torch.empty(lead + shape, dtype=dtype, device=gen.device)
+    for piece in (out.view((-1,) + shape) if lead else (out,)):
+        piece.copy_(torch.randn(shape, generator=gen, dtype=torch.float32,
+                                device=gen.device).mul_(scale))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -67,10 +74,10 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float = 10000.0) -> Tensor:
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
              activation: str = "swiglu", dtype=torch.bfloat16,
              lead: Tuple[int, ...] = ()) -> Dict[str, Tensor]:
-    p = {"up": _init(gen, lead + (d_model, d_ff), d_model ** -0.5, dtype),
-         "down": _init(gen, lead + (d_ff, d_model), d_ff ** -0.5, dtype)}
+    p = {"up": _init(gen, (d_model, d_ff), d_model ** -0.5, dtype, lead),
+         "down": _init(gen, (d_ff, d_model), d_ff ** -0.5, dtype, lead)}
     if activation == "swiglu":
-        p["gate"] = _init(gen, lead + (d_model, d_ff), d_model ** -0.5, dtype)
+        p["gate"] = _init(gen, (d_model, d_ff), d_model ** -0.5, dtype, lead)
     return p
 
 

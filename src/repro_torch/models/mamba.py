@@ -67,17 +67,17 @@ def init_mamba1(gen: torch.Generator, d_model: int, s: SSMSpec,
     a_log = torch.log(torch.arange(1, s.d_state + 1, dtype=torch.float32,
                                    device=dev))
     return {
-        "in_x": _init(gen, lead + (d_model, di), d_model ** -0.5, dtype),
-        "in_z": _init(gen, lead + (d_model, di), d_model ** -0.5, dtype),
-        "conv_w": _init(gen, lead + (s.d_conv, di), 0.5, dtype),
+        "in_x": _init(gen, (d_model, di), d_model ** -0.5, dtype, lead),
+        "in_z": _init(gen, (d_model, di), d_model ** -0.5, dtype, lead),
+        "conv_w": _init(gen, (s.d_conv, di), 0.5, dtype, lead),
         "conv_b": torch.zeros(lead + (di,), dtype=dtype, device=dev),
-        "x_proj": _init(gen, lead + (di, dt_rank + 2 * s.d_state),
-                        di ** -0.5, dtype),
-        "dt_proj": _init(gen, lead + (dt_rank, di), dt_rank ** -0.5, dtype),
+        "x_proj": _init(gen, (di, dt_rank + 2 * s.d_state), di ** -0.5,
+                        dtype, lead),
+        "dt_proj": _init(gen, (dt_rank, di), dt_rank ** -0.5, dtype, lead),
         "dt_bias": torch.zeros(lead + (di,), dtype=torch.float32, device=dev),
         "A_log": a_log.expand(lead + (di, s.d_state)).contiguous(),
         "D": torch.ones(lead + (di,), dtype=torch.float32, device=dev),
-        "out_proj": _init(gen, lead + (di, d_model), di ** -0.5, dtype),
+        "out_proj": _init(gen, (di, d_model), di ** -0.5, dtype, lead),
     }
 
 

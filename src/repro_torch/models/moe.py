@@ -35,17 +35,17 @@ def init_moe(gen: torch.Generator, d_model: int, f: FFNSpec,
     1/sqrt(E), the reference ``_init``'s default."""
     e, dff = f.n_experts, f.d_ff
     p = {
-        "router": _init(gen, lead + (d_model, e), 0.02, torch.float32),
-        "w_up": _init(gen, lead + (e, d_model, dff), e ** -0.5, dtype),
-        "w_down": _init(gen, lead + (e, dff, d_model), e ** -0.5, dtype),
+        "router": _init(gen, (d_model, e), 0.02, torch.float32, lead),
+        "w_up": _init(gen, (e, d_model, dff), e ** -0.5, dtype, lead),
+        "w_down": _init(gen, (e, dff, d_model), e ** -0.5, dtype, lead),
     }
     if f.activation == "swiglu":
-        p["w_gate"] = _init(gen, lead + (e, d_model, dff), e ** -0.5, dtype)
+        p["w_gate"] = _init(gen, (e, d_model, dff), e ** -0.5, dtype, lead)
     if f.n_shared_experts:
         ds = f.n_shared_experts * dff
-        p["shared_up"] = _init(gen, lead + (d_model, ds), d_model ** -0.5,
-                               dtype)
-        p["shared_down"] = _init(gen, lead + (ds, d_model), ds ** -0.5, dtype)
+        p["shared_up"] = _init(gen, (d_model, ds), d_model ** -0.5, dtype,
+                               lead)
+        p["shared_down"] = _init(gen, (ds, d_model), ds ** -0.5, dtype, lead)
     return p
 
 

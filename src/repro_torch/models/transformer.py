@@ -20,9 +20,11 @@ Modes:
   decode  — the multi-position decode forward (Eq. 2): N new positions
             against a cache of length ``cache_len``.
 The FFN is a dense MLP or the MoE FFN (``models.moe``); ``use_kernel``
-reaches the MoE FFN and the selective scan in every mode and attention
-in decode mode (prefill attention has no kernel).  Hybrid segments,
-Mamba2, shared attention and the encoder are not ported.
+reaches the MoE FFN and the selective scan in every mode and GQA / SWA
+attention in decode mode (prefill attention and MLA have no kernel).
+Attention is GQA, sliding-window GQA (optionally decoding over an
+O(window) ring buffer, ``swa_ring``) or MLA.  Hybrid segments, Mamba2,
+shared attention and the encoder are not ported.
 """
 from __future__ import annotations
 
@@ -66,7 +68,8 @@ def has_ssm(cfg: ArchConfig) -> bool:
 
 
 def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the architecture zoo the port lacks."""
+    """Raise for the parts of the architecture zoo the port lacks (every
+    attention kind — GQA, sliding window, MLA — is ported)."""
     kinds = {kind for kind, _ in make_segments(cfg)}
     if kinds - {LAYER_ATTN, LAYER_SSM}:
         raise NotImplementedError(f"{cfg.name}: hybrid segments are not "
@@ -134,24 +137,35 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device: DeviceLike = None) -> Dict:
+               dtype=torch.bfloat16, device: DeviceLike = None,
+               swa_ring: bool = False, ring_headroom: int = 128) -> Dict:
     """Pre-allocated dense decode cache: per attention segment, (layers,
-    batch, max_len, kv, dh) K and V; per SSM segment, (layers, batch,
-    d_conv-1, di) conv history in ``dtype`` and (layers, batch, di, ds)
-    f32 ssm state."""
+    batch, max_len, kv, dh) K and V (MLA: the latent and rotary key); per
+    SSM segment, (layers, batch, d_conv-1, di) conv history in ``dtype``
+    and (layers, batch, di, ds) f32 ssm state.
+
+    ``swa_ring``: a sliding-window model allocates an O(window) RING
+    buffer of window + ``ring_headroom`` decode positions, rounded up to
+    16 and capped at ``max_len``, instead of O(max_len) — pair it with
+    ``forward(..., swa_ring=True)``."""
     check_ported(cfg)
     dev = resolve_device(device)
+    a = cfg.attention
+    attn_len = max_len
+    if swa_ring and a is not None and a.kind == "swa" and a.window:
+        attn_len = min(max_len, (a.window + ring_headroom + 15) // 16 * 16)
     return {"segments": [
         init_mamba1_state(batch, cfg.d_model, cfg.ssm, dtype, dev, (count,))
         if kind == LAYER_SSM else
-        init_kv_cache(batch, max_len, cfg.attention, dtype, dev, (count,))
+        init_kv_cache(batch, attn_len, a, dtype, dev, (count,))
         for kind, count in make_segments(cfg)]}
 
 
 def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
                      dtype=torch.bfloat16, device: DeviceLike = None) -> Dict:
     """Paged decode state: every layer owns an (n_phys, block_size, kv,
-    dh) pool; all layers share one logical block layout (the per-slot
+    dh) K and V pool (MLA: (n_phys, block_size, ·) latent and rotary-key
+    pools); all layers share one logical block layout (the per-slot
     block tables of ``serving.paged``).  Paging covers K/V only: a model
     with recurrent state has no sequence axis to page."""
     check_ported(cfg)
@@ -180,13 +194,13 @@ def _ffn_apply(lp, cfg: ArchConfig, h: Tensor, use_kernel: bool,
 
 
 def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
-                mode: str, use_kernel: bool, block_tables, routing_override
-                ) -> Tuple[Tensor, Optional[Tensor]]:
+                mode: str, use_kernel: bool, block_tables, routing_override,
+                swa_ring: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         att, _ = attention_decode(lp["attn"], cfg.attention, h, cache,
                                   cache_len, cfg.rope_theta, use_kernel,
-                                  block_tables=block_tables)
+                                  swa_ring, block_tables=block_tables)
     else:
         att, _ = attention_full(lp["attn"], cfg.attention, h, positions,
                                 cfg.rope_theta, build_cache=cache,
@@ -225,7 +239,7 @@ def _ssm_segment(sp: Dict, sc: Optional[Dict], count: int, cfg: ArchConfig,
 def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             cache: Optional[Dict] = None, cache_len=0,
             use_kernel: bool = False, block_tables: Optional[Tensor] = None,
-            routing_override=None,
+            routing_override=None, swa_ring: bool = False,
             ) -> Tuple[Tensor, Optional[Dict], Tensor, Tensor]:
     """Returns (logits, new_cache, moe_aux_loss, hidden), as the
     reference; the aux loss is summed over the MoE layers.
@@ -236,8 +250,10 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     max_blocks) int32 switches decode-mode attention onto the PAGED pool
     (``init_paged_cache``) with a (b,) ``cache_len``.
     ``routing_override`` (idx (T, k), weights (T, k)) fixes every MoE
-    layer's routing (the paper's controlled patterns).  ``hidden`` is the
-    final-norm output (b, s, d) the LM head reads.
+    layer's routing (the paper's controlled patterns).  ``swa_ring``
+    decodes a sliding-window model over the ring buffer of
+    ``init_cache(swa_ring=True)`` (dense cache, scalar ``cache_len``).
+    ``hidden`` is the final-norm output (b, s, d) the LM head reads.
     inputs: {"tokens": (b, s) int} or {"embeds": (b, s, d)}.
     """
     check_ported(cfg)
@@ -264,7 +280,7 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             x, layer_aux = _attn_layer(
                 _layer(sp, i), cfg, x, positions,
                 None if sc is None else _layer(sc, i), cache_len, mode,
-                use_kernel, block_tables, routing_override)
+                use_kernel, block_tables, routing_override, swa_ring)
             if layer_aux is not None:
                 auxes.append(layer_aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

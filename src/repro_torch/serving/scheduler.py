@@ -392,9 +392,10 @@ class ServingLoop:
     # ------------------------------------------------------------------
     def _attn_slack(self, width: int) -> Optional[Dict]:
         """This forward's modelled decode-attention slack (None off the
-        kernel path, where nothing is tiled, and without attention)."""
+        kernel path, where nothing is tiled, and for the models the kernel
+        does not serve: MLA and no attention)."""
         a = self.engine.cfg.attention
-        if not self.engine.use_kernel or a is None:
+        if not self.engine.use_kernel or a is None or a.kind == "mla":
             return None
         active = np.zeros(self.engine.batch, bool)
         active[list(self.active)] = True

@@ -204,6 +204,85 @@ def test_paged_kernel_page_sizes(ops, heads, bs, n):
         assert int(tiles.item()) == kv * want["kv_tiles_executed"]
 
 
+GEOMETRIES = {"mixtral": (48, 8, 128), "starcoder2": (24, 2, 128),
+              "phi3_medium": (40, 10, 128), "phi3_vision": (32, 32, 96)}
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("n", [1, 16, 17])
+@pytest.mark.parametrize("heads", list(GEOMETRIES.values()),
+                         ids=list(GEOMETRIES))
+def test_served_geometries(ops, heads, n, paged):
+    """The GQA folds of mixtral, starcoder2, phi3_medium and phi3_vision:
+    g = 6 (96 rows at n = 16), g = 12 (192 rows: three 64-row passes),
+    g = 4 at 40 heads, and MHA at dh 96; an empty, a short, a long and a
+    full row, with and without a window; executed tiles counted."""
+    h, kv, dh = heads
+    g = torch.Generator(device="cuda").manual_seed(300 + n)
+    s = 256
+    lens = [0, 37, 150, s - n]
+    if paged:
+        q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, s // 16,
+                                              n)
+    else:
+        q, k, v = _bf16(g, 4, n, h, dh), _bf16(g, 4, s, kv, dh), \
+            _bf16(g, 4, s, kv, dh)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for window in (None, 48):
+        tiles.zero_()
+        if paged:
+            out = ops.decode_attention_paged(q, k, v, lens_t, tables,
+                                             window=window, tiles=tiles)
+            ref = ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
+                                                 window=window)
+        else:
+            out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
+                                              tiles=tiles)
+            ref = ops.decode_attention_ref(q, k, v, lens_t, window=window)
+        torch.testing.assert_close(out, ref, **TOL)
+        want = ops.slack_report(n, lens, s, head_dim=dh,
+                                k_block=16 if paged else ops.K_BLOCK,
+                                window=window)
+        assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("n", [1, 8, 17])
+def test_window_past_4096(ops, n, paged):
+    """mixtral_8x22b's window of 4096 at contexts around and past it
+    (4095, 4096, 4097, 4352 and up to 4600 of a 4608-position cache): the
+    skip rule's lower bound drops the first tiles (at 4352, 2 dense tiles
+    or 16 pages); executed tiles equal slack_report's and are fewer than
+    the grid's."""
+    h, kv, dh = GEOMETRIES["mixtral"]
+    g = torch.Generator(device="cuda").manual_seed(400 + n)
+    s, window = 4608, 4096
+    lens = [4095, 4096, 4097, 4352, min(4600, s - n)]
+    if paged:
+        q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, s // 16,
+                                              n)
+        tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+        out = ops.decode_attention_paged(q, k, v, lens_t, tables,
+                                         window=window, tiles=tiles)
+        ref = ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
+                                             window=window)
+    else:
+        q, k, v = _bf16(g, 5, n, h, dh), _bf16(g, 5, s, kv, dh), \
+            _bf16(g, 5, s, kv, dh)
+        lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+        out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
+                                          tiles=tiles)
+        ref = ops.decode_attention_ref(q, k, v, lens_t, window=window)
+    torch.testing.assert_close(out, ref, **TOL)
+    want = ops.slack_report(n, lens, s, head_dim=dh,
+                            k_block=16 if paged else ops.K_BLOCK,
+                            window=window)
+    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+    assert want["kv_tiles_executed"] < want["kv_tiles_grid"]
+
+
 def test_kernel_rejects_what_it_does_not_take(ops):
     q = torch.zeros((1, 1, 4, 24), dtype=torch.bfloat16, device="cuda")
     k = torch.zeros((1, 32, 4, 24), dtype=torch.bfloat16, device="cuda")
@@ -264,6 +343,54 @@ def test_moe_kernel_matches_plain(moe_ops, t, gated):
                                   be, bv, token_block=tb, activation=act)
     torch.testing.assert_close(out[slot], ref[slot], **MOE_TOL)
     assert int(blocks.item()) == sum(-(-int(c) // tb) for c in gs.tolist())
+
+
+@pytest.mark.parametrize("t", [4, 256])
+def test_moe_kernel_at_mixtral_width(moe_ops, t):
+    """mixtral_8x22b's expert FFN: E 8, top-2, d 6144, f 16384 (32 f
+    tiles), at a decode T (4 slots, block 16) and a prefill T (block
+    64); executed blocks counted.  Outputs reach an rms of ~2e4 as sums
+    of 16384 terms of ~1e2, so a near-zero output moves with the sums'
+    rounding, which scales with the rows' rms: the absolute tolerance is
+    2^-10 of it (MOE_TOL's 2e-2 is the same rule at granite's width), and
+    the kernel is also held against the FFN in float64."""
+    F = torch.nn.functional
+    e, k, d, f = 8, 2, 6144, 16384
+    g = torch.Generator(device="cuda").manual_seed(500 + t)
+    w = _moe_weights(g, e, d, f)
+    idx = torch.rand((t, e), generator=g, device="cuda").topk(k).indices
+    tb = 16 if t <= e else 64
+    order, slot, be, bv, m_pad, gs = _moe_layout(moe_ops, idx, e, tb)
+    x_pad = torch.zeros((m_pad, d), dtype=torch.bfloat16, device="cuda")
+    x_pad[slot] = torch.randn((t * k, d), generator=g, device="cuda").to(
+        torch.bfloat16)
+    blocks = torch.zeros(1, dtype=torch.int32, device="cuda")
+    args = (x_pad, w["w_gate"], w["w_up"], w["w_down"], be, bv)
+    out = moe_ops.grouped_ffn_padded(*args, token_block=tb,
+                                     activation="swiglu", blocks=blocks)[slot]
+    ref = moe_ops.grouped_ffn_ref(*args, token_block=tb,
+                                  activation="swiglu")[slot].float()
+    atol = 2.0 ** -10 * float(ref.pow(2).mean().sqrt())
+    torch.testing.assert_close(out.float(), ref, atol=atol,
+                               rtol=MOE_TOL["rtol"])
+    exact = torch.zeros_like(x_pad, dtype=torch.float64)
+    for ex in range(e):
+        rows = torch.cat([torch.arange(i * tb, (i + 1) * tb)
+                          for i, (b, v) in enumerate(zip(be.tolist(),
+                                                         bv.tolist()))
+                          if v and b == ex] or [torch.arange(0)]).cuda()
+        if rows.numel():
+            xe = x_pad[rows].double()
+            h = (F.silu(xe @ w["w_gate"][ex].double())
+                 * (xe @ w["w_up"][ex].double()))
+            exact[rows] = h @ w["w_down"][ex].double()
+    torch.testing.assert_close(out.double(), exact[slot], atol=atol,
+                               rtol=MOE_TOL["rtol"])
+    assert int(blocks.item()) == sum(-(-int(c) // tb) for c in gs.tolist())
+    # tens of GB cached here would make a later graph capture give memory
+    # back mid-capture
+    del w, args, out, ref, exact
+    torch.cuda.empty_cache()
 
 
 @pytest.mark.parametrize("case", ["swiglu f=1024", "one expert"])
