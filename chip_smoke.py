@@ -26,8 +26,10 @@ Phases, in order; any failure exits non-zero:
                 shapes, n = 16 and 17 at serving lengths 48-112 in both
                 modes; then the geometries (h, kv, dh) = (48, 8, 128)
                 mixtral_8x22b, (24, 2, 128) starcoder2_3b, (40, 10, 128)
-                phi3_medium_14b and (32, 32, 96) phi3_vision_4p2b, n in
-                {1, 16, 17}, with and without a window, both modes; then
+                phi3_medium_14b, (32, 32, 96) phi3_vision_4p2b, (32, 32,
+                64) zamba2_1p2b's shared attention and (6, 6, 64)
+                whisper_tiny's decoder, n in {1, 16, 17}, with and without
+                a window, both modes; then
                 mixtral's window of 4096 at lengths 4095, 4096, 4097, 4352
                 and 4600 in a 4608-position cache (tiles skipped below
                 the window); the executed kv tiles must equal
@@ -52,7 +54,7 @@ Phases, in order; any failure exits non-zero:
                 s real positions bitwise the same under two paddings.  Then
                 times each kernel (decode attention at n = 1 and 16 at
                 stablelm_3b's shapes, n = 17 at wedlm8b_like's and n = 1
-                and 16 at the four new geometries; the MoE FFN at
+                and 16 at the six later geometries; the MoE FFN at
                 granite's, llada's and mixtral's decode and prefill), its
                 plain version and a library call
                 (scaled_dot_product_attention; torch._grouped_mm; none
@@ -138,16 +140,34 @@ Phases, in order; any failure exits non-zero:
                 its seam; starcoder2_3b, phi3_medium_14b and
                 phi3_vision_4p2b at full size, lighter: the capture
                 check, paged and dense greedy with their stream
-                comparison and the forward check.  Each phase prints its
-                device memory peak.
-                Each model but the three lighter ones then takes its NFP
+                comparison and the forward check.  Then zamba2_1p2b
+                (Mamba2, no kernel; a shared attention + MLP block in 6 of
+                its 38 layers, through the decode-attention kernel) at
+                full size as falcon_mamba_7b: the capture check, dense
+                greedy in bf16 (captured and eager; streams against the
+                solo greedy_generate printed only) and in float32 through
+                the plain versions (the kernel takes bf16 only; streams
+                held), the bf16 forward held kernel vs plain, launches =
+                6 hybrid layers x decode-shape forwards and no scan, one
+                captured step against its weight bound beside its Mamba2
+                recurrence alone, and its calibration.  Then whisper_tiny
+                (encoder-decoder; no engine path passes its frame
+                embeddings, as in the reference) at full size over 1500
+                seeded stub frames: the train forward, prefill + decode
+                at n = 1 and 16 kernel vs plain and against the train
+                forward, and a decode forward's time beside the encoder's
+                and the cross K/V projections' it recomputes.  Each phase
+                prints its device memory peak.
+                Each model but the three lighter ones and whisper_tiny
+                then takes its NFP
                 calibration on the card:
                 ``calibrate_engine`` (wall clock, CUDA events, the
                 captured step) on a dense 4-slot engine of 1024 positions
                 over ``width_grid(128)`` at buckets 64, 256 and 896, its
                 launches exactly layers x forwards: per bucket the measured
                 N_max beside the analytic budget, its limiting term, n_idle,
-                the noise and both over-prediction ratios.
+                the noise and both over-prediction ratios, and the
+                seconds each width's capture took.
   5. cli      — through ``repro_torch.launch.serve``: the pinned trace
                 replay (``loadgen.PINNED_STACK``, full-width stablelm_3b)
                 on the simulated H100 clock, then on the wall clock,
@@ -155,7 +175,8 @@ Phases, in order; any failure exits non-zero:
                 goodput per SLO class), read back and checked; then
                 wedlm8b_like and granite_moe_3b_a800m served speculative
                 with ``--calibration run`` and then ``load`` (applied and
-                analytic mean budgets, latency ratios).  A summary of
+                analytic mean budgets, latency ratios); full-width
+                zamba2_1p2b dense greedy.  A summary of
                 eager vs captured tok/s, idle shares and the calibration
                 table and the memory peaks follow.
   6. report   — one JSON line of kernels (launches summed over every run
@@ -277,12 +298,16 @@ MIXTRAL_MOE = (8, 2, 6144, 16384)
 # falcon_mamba_7b's scan: (d_inner, d_state)
 FALCON_SCAN = (8192, 16)
 # decode-attention geometries (h, kv, dh) of mixtral_8x22b, starcoder2_3b,
-# phi3_medium_14b and phi3_vision_4p2b: GQA g = 6 (96 rows at n = 16),
-# g = 12 (192 rows: three 64-row passes), g = 4 at 40 heads, MHA at dh 96
+# phi3_medium_14b, phi3_vision_4p2b, zamba2_1p2b and whisper_tiny: GQA
+# g = 6 (96 rows at n = 16), g = 12 (192 rows: three 64-row passes), g = 4
+# at 40 heads, MHA at dh 96, and MHA at dh 64 with 32 heads (zamba2's
+# shared attention) and with 6 (whisper's decoder: 24 blocks at 4 slots)
 NEW_GEOMETRIES = {"mixtral_8x22b": (48, 8, 128),
                   "starcoder2_3b": (24, 2, 128),
                   "phi3_medium_14b": (40, 10, 128),
-                  "phi3_vision_4p2b": (32, 32, 96)}
+                  "phi3_vision_4p2b": (32, 32, 96),
+                  "zamba2_1p2b": (32, 32, 64),
+                  "whisper_tiny": (6, 6, 64)}
 # mixtral_8x22b's sliding window and its long-context runs: 4352-token
 # prompts (256 positions past the window) in a 4608-position cache
 MIXTRAL_WINDOW = 4096
@@ -304,6 +329,10 @@ SPEEDS = []
 IDLE = {}
 CALIBRATION = {}
 MEMORY = {}
+# a Mamba2 model's captured step against its weight bound and its
+# recurrence's share, and whisper's decode forward beside its re-encoding
+MAMBA2 = {}
+WHISPER = {}
 
 
 def card_line() -> str:
@@ -333,6 +362,21 @@ def time_ms(fn, flush, iters: int = 30) -> float:
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def graph_ms(fn, flush) -> float:
+    """``time_ms`` of ``fn`` captured into a CUDA graph of its own (one
+    eager call on a side stream first) and replayed: device time without
+    the host's launch gaps, for work of thousands of small operations."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, flush)
 
 
 def launch_floor_ms() -> float:
@@ -462,8 +506,8 @@ def check_kernels(ops) -> dict:
             for lens in ([48, 64, 96, 112], [48, 63, 79, 111]):
                 run(paged, n, h, kv, dh, lens, None,
                     "fragmented" if paged else "")
-    # mixtral's, starcoder2's, phi3_medium's and phi3_vision's geometries,
-    # at an empty, a short, a long and a full row, one m-tile and two
+    # the geometries of NEW_GEOMETRIES (mixtral's to whisper's), at an
+    # empty, a short, a long and a full row, one m-tile and two
     for h, kv, dh in NEW_GEOMETRIES.values():
         for paged in (False, True):
             for n in (1, 16, 17):
@@ -1164,6 +1208,21 @@ def attn_kernel(cfg) -> bool:
     return cfg.attention is not None and cfg.attention.kind != "mla"
 
 
+def kernel_layers(cfg) -> dict:
+    """The layers of one forward that launch each kernel: decode
+    attention (decode-shaped forwards only) in every GQA / SWA attention
+    layer and every hybrid layer's shared attention; the MoE FFN in every
+    MoE layer; the selective scan in every Mamba1 layer.  Mamba2 has no
+    kernel."""
+    from repro_torch.core.arch import LAYER_ATTN, LAYER_HYBRID, LAYER_SSM
+    attn = cfg.count_layers(LAYER_ATTN)
+    hybrid = cfg.count_layers(LAYER_HYBRID)
+    mamba1 = cfg.ssm is not None and cfg.ssm.kind == "mamba1"
+    return {"attn": attn + hybrid if attn_kernel(cfg) else 0,
+            "moe": attn if cfg.ffn.kind == "moe" else 0,
+            "scan": cfg.count_layers(LAYER_SSM) + hybrid if mamba1 else 0}
+
+
 def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
               loop_kw=None, prepare=None, use_kernel=True, capture=True,
               batch=4, max_len=MAX_LEN, label=""):
@@ -1232,18 +1291,16 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     shaped = s["forwards"] + hit_forwards
     every = s["forwards"] + s["prefill_forwards"]
     is_moe = cfg.ffn.kind == "moe"
-    is_ssm = cfg.ssm is not None            # attention-free: every layer SSM
-    layers = cfg.n_layers
-    attn = layers * shaped if attn_kernel(cfg) else 0
+    per = kernel_layers(cfg)
+    attn = per["attn"] * shaped
     want = {"dense": 0 if block_size else attn,
             "paged": attn if block_size else 0,
-            "moe": layers * every if is_moe else 0,
-            "scan": layers * every if is_ssm else 0}
+            "moe": per["moe"] * every, "scan": per["scan"] * every}
     if not use_kernel:
         want = dict.fromkeys(want, 0)
     if launches != want:
         raise AssertionError(f"{name}: kernel launches {launches}, expected "
-                             f"{want} ({layers} layers x {shaped} "
+                             f"{want} (layers {per}; attention x {shaped} "
                              f"decode-shape forwards; MoE and scan: x "
                              f"{every} forwards)")
     # decode (T = 4) and the 4 x 64 prefill bucket's token blocks
@@ -1282,9 +1339,10 @@ def check_forward(mods, cfg, params, prompts, rtol, held=True) -> None:
     enough to flip the layers above it, so the logits part wholesale.
     With ``held`` False the comparison is printed only."""
     from repro_torch.models import forward
+    from repro_torch.models.transformer import has_ssm
     DecodeEngine, PagedKVConfig = mods[:2]
     moe = mods[5]
-    pools = ((None,) if cfg.attention is None
+    pools = ((None,) if has_ssm(cfg)
              else (None, PagedKVConfig(block_size=16)))
     for paged in pools:
         eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
@@ -1508,13 +1566,13 @@ def check_capture(mods, cfg, params, prompts, card) -> None:
     be bitwise equal, every call's kernel launches equal, and after the
     commits every cache tensor (K/V, and an SSM model's states) bitwise
     equal — dense, and paged for an attention model."""
+    from repro_torch.models.transformer import has_ssm
     from repro_torch.serving.capture import launch_counts
     DecodeEngine, PagedKVConfig = mods[:2]
-    pools = ((None,) if cfg.attention is None
+    pools = ((None,) if has_ssm(cfg)
              else (None, PagedKVConfig(block_size=16)))
     # an MLA model with a dense FFN reaches no kernel: every count is 0
-    kernels = (attn_kernel(cfg) or cfg.ffn.kind == "moe"
-               or cfg.ssm is not None)
+    kernels = sum(kernel_layers(cfg).values()) > 0
     for paged in pools:
         gc.collect()
         engs = [DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
@@ -1543,10 +1601,8 @@ def check_capture(mods, cfg, params, prompts, card) -> None:
                 outs.append((logits.clone(), hidden.clone()))
                 eng.commit_slots(cache, adv)
             same_cache = all(
-                torch.equal(a, b)
-                for sa, sb in zip(engs[0].cache["segments"],
-                                  engs[1].cache["segments"])
-                for a, b in zip(sa.values(), sb.values()))
+                torch.equal(a, b) for a, b in zip(_leaves(engs[0].cache),
+                                                  _leaves(engs[1].cache)))
             ok = (torch.equal(outs[0][0], outs[1][0])
                   and torch.equal(outs[0][1], outs[1][1]) and same_cache
                   and all(c == counts[0] for c in counts)
@@ -1570,12 +1626,13 @@ def calibration_table(mods, cfg, params, card) -> dict:
     """The paper's measurement on the card: ``calibrate_engine`` (wall
     clock: the CAPTURED decode step, CUDA events) on a dense 4-slot
     engine of ``CALIB_MAX_LEN`` positions over ``width_grid(128)`` at the
-    buckets it derives, every kernel launch of the sweep counted (exactly
-    layers x forwards).  Prints per bucket the measured N_max beside the
-    analytic budget, n_idle and the limiting term, the noise, both
-    over-prediction ratios and T(N); saves the table under
-    ``<out>/calibration/``.  Returns the launches."""
+    buckets it derives (each width's capture timed first), every kernel
+    launch of the sweep counted (exactly layers x forwards).  Prints per
+    bucket the measured N_max beside the analytic budget, n_idle and the
+    limiting term, the noise, both over-prediction ratios and T(N); saves
+    the table under ``<out>/calibration/``.  Returns the launches."""
     from repro_torch.autotune import calibrate_engine, save_table
+    from repro_torch.autotune.calibrate import width_grid
     DecodeEngine, ops, moe_ops, scan_ops = mods[0], mods[3], mods[4], mods[6]
     gc.collect()
     eng = DecodeEngine(cfg, params, batch=4, max_len=CALIB_MAX_LEN,
@@ -1584,6 +1641,17 @@ def calibration_table(mods, cfg, params, card) -> dict:
            "paged": ops.decode_attention_paged,
            "moe": moe_ops.grouped_ffn_padded,
            "scan": scan_ops.selective_scan_padded}
+    # the sweep's widths, captured first and timed one by one (a Mamba2
+    # model unrolls its per-position loop into the graph: wider, longer)
+    captures = {}
+    for n in width_grid(min(128, CALIB_MAX_LEN // 2)):
+        t0 = time.perf_counter()
+        eng.warm_decode([n])
+        torch.cuda.synchronize()
+        captures[n] = time.perf_counter() - t0
+    print(f"calibration {cfg.name}: capture seconds per width " + ", ".join(
+        f"{n}: {t:.2f}" for n, t in captures.items())
+        + f" (total {sum(captures.values()):.1f} s) [{card}]")
     for fn in fns.values():
         fn.launches = 0
     warmup, rounds, iters = 3, 5, 5
@@ -1594,11 +1662,9 @@ def calibration_table(mods, cfg, params, card) -> dict:
     launches = {k: fn.launches for k, fn in fns.items()}
     forwards = sum(len(e.ns) for e in table.entries) * (warmup
                                                         + rounds * iters)
-    is_moe, is_ssm = cfg.ffn.kind == "moe", cfg.ssm is not None
-    want = {"dense": cfg.n_layers * forwards if attn_kernel(cfg) else 0,
-            "paged": 0,
-            "moe": cfg.n_layers * forwards if is_moe else 0,
-            "scan": cfg.n_layers * forwards if is_ssm else 0}
+    per = kernel_layers(cfg)
+    want = {"dense": per["attn"] * forwards, "paged": 0,
+            "moe": per["moe"] * forwards, "scan": per["scan"] * forwards}
     print(f"calibration {cfg.name} ({table.backend} backend, captured "
           f"decode step, 4 slots, max_len {CALIB_MAX_LEN}): "
           f"{len(table.entries)} buckets x {len(table.entries[0].ns)} widths"
@@ -2323,12 +2389,15 @@ def serve_parallel(mods, arch, card, forward_rtol, dense_block=None,
     return runs
 
 
-def solo_greedy(mods, cfg, params, prompts, card) -> tuple:
+def solo_greedy(mods, cfg, params, prompts, card, use_kernel=True
+                ) -> tuple:
     """Every prompt through a batch-1 engine's ``greedy_generate`` (the
-    kernel path), recording the top-2 gap before each token as
-    ``record_gaps`` does.  Returns ({rid: tokens}, gaps)."""
-    DecodeEngine, scan_ops = mods[0], mods[6]
-    eng = DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN, device="cuda")
+    kernel path, or the plain versions), recording the top-2 gap before
+    each token as ``record_gaps`` does; the scan and decode-attention
+    launches counted.  Returns ({rid: tokens}, gaps)."""
+    DecodeEngine, ops, scan_ops = mods[0], mods[3], mods[6]
+    eng = DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN, device="cuda",
+                       use_kernel=use_kernel)
     inner_prefill, inner_step = eng.prefill, eng.decode_step
     rec, streams, cur = [], {}, {}
 
@@ -2345,86 +2414,158 @@ def solo_greedy(mods, cfg, params, prompts, card) -> tuple:
         return logits
     eng.prefill, eng.decode_step = prefill, decode_step
     scan_ops.selective_scan_padded.launches = 0
+    ops.decode_attention_ragged.launches = 0
     t0 = time.perf_counter()
     for rid, p in enumerate(prompts):
         cur["rid"] = rid
         streams[rid] = eng.greedy_generate(
             torch.as_tensor(p[None], device="cuda"), 32)[0].cpu().numpy()
     dt = time.perf_counter() - t0
-    want = cfg.n_layers * 32 * len(prompts)
-    got = scan_ops.selective_scan_padded.launches
+    # prefill + 31 decode forwards a request; attention: the decode ones
+    per = kernel_layers(cfg)
+    want = {"scan": per["scan"] * 32 * len(prompts) * use_kernel,
+            "dense": per["attn"] * 31 * len(prompts) * use_kernel}
+    got = {"scan": scan_ops.selective_scan_padded.launches,
+           "dense": ops.decode_attention_ragged.launches}
     if got != want:
-        raise AssertionError(f"solo greedy: {got} scan launches, expected "
-                             f"{want}")
-    print(f"solo greedy_generate {cfg.name}: {len(prompts)} requests x 32 "
-          f"forwards in {dt:.3f} s, scan launches {got} [{card}]")
+        raise AssertionError(f"solo greedy: launches {got}, expected {want}")
+    print(f"solo greedy_generate {cfg.name}"
+          f"{'' if use_kernel else ' (plain versions)'}: {len(prompts)} "
+          f"requests x 32 forwards in {dt:.3f} s, launches {got} [{card}]")
     return streams, rec
 
 
 def serve_ssm(mods, arch, card, forward_rtol) -> dict:
-    """Phase 4 for an SSM model, dense greedy only.  The bf16 model serves
-    8 requests on 4 slots (every slot reused): the main path, launches
-    counted.  Its streams against each request's batch-1
-    ``greedy_generate`` and its full-size forward against the plain scan
-    are printed only: a 64-layer random-weight Mamba1 amplifies one bf16
-    rounding into logits that part wholesale (``ssm_sensitivity`` prints
-    by how much).  The same weights cast to float32 then serve the same
-    requests, and there every stream must equal its solo
-    ``greedy_generate`` through the kernel up to the GAP_TOL near-tie rule
-    and the forward must agree with the plain scan within
-    ``forward_rtol``.  Returns the launches by run."""
+    """Phase 4 for a model with recurrent state, dense greedy only.  The
+    bf16 model serves 8 requests on 4 slots (every slot reused): the main
+    path, launches counted.  Its streams against each request's batch-1
+    ``greedy_generate`` are printed only: a deep random-weight SSM stack
+    may amplify one bf16 rounding into logits that part wholesale
+    (``ssm_sensitivity`` prints by how much).  The same weights cast to
+    float32 then serve the same requests, and there every stream must
+    equal its solo ``greedy_generate`` up to the GAP_TOL near-tie rule.
+
+    falcon_mamba_7b (Mamba1): its kernel, the selective scan, takes
+    float32, so the f32 runs go through it and the full-size forward is
+    held against the plain scan in f32 (``forward_rtol``), printed in
+    bf16.  zamba2_1p2b (Mamba2, no kernel; hybrid layers with shared
+    attention): its kernel is decode attention in the hybrid layers,
+    which takes bf16 only, so the forward is held kernel vs plain in bf16
+    and the f32 runs go through the plain versions; one captured step is
+    also timed beside the weight bound and the Mamba2 loop's share
+    (``mamba2_step``).  Returns the launches by run."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config(arch)
     params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
                         "cuda")
     n_params = sum(t.numel() for t in _leaves(params))
-    print(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-          f"{n_params:.4g} parameters, {2 * n_params / 1e9:.4g} GB in bf16")
+    print(f"{cfg.name}: {cfg.n_layers} layers ({cfg.count_layers('hybrid')} "
+          f"hybrid), d {cfg.d_model}, {cfg.ssm.kind}, {n_params:.4g} "
+          f"parameters, {2 * n_params / 1e9:.4g} GB in bf16")
+    f32_kernel = cfg.attention is None       # the scan kernel takes f32
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=48) for _ in range(8)]
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
     check_capture(mods, cfg, params, prompts, card)
-    runs = {"dense_greedy_bf16": ssm_checks(mods, cfg, params, prompts,
-                                            card, forward_rtol, held=False)}
+    runs = {"dense_greedy_bf16": ssm_checks(
+        mods, cfg, params, prompts, card, forward_rtol, held=False,
+        forward_held=not f32_kernel)}
     for capture in (True, False):
         profile_steps(mods, cfg, params, prompts, card, how="dense greedy",
                       capture=capture, host=capture)
+    if cfg.ssm.kind == "mamba2":
+        mamba2_step(mods, cfg, params, prompts, card)
     runs["calibration"] = calibration_table(mods, cfg, params, card)
     params32 = _to_f32(params)
-    for p in (params, params32):
-        count_launches(cfg, p, prompts, card)
-    ssm_sensitivity(cfg, params, params32, prompts)
+    for p, use_kernel in ((params, True), (params32, f32_kernel)):
+        count_launches(cfg, p, prompts, card, use_kernel)
+    ssm_sensitivity(cfg, params, params32, prompts, f32_kernel)
     del params
     torch.cuda.empty_cache()
-    runs["dense_greedy_f32"] = ssm_checks(mods, cfg, params32, prompts, card,
-                                          forward_rtol, held=True)
+    runs["dense_greedy_f32"] = ssm_checks(
+        mods, cfg, params32, prompts, card, forward_rtol, held=True,
+        forward_held=True, use_kernel=f32_kernel)
     return runs
 
 
-def ssm_checks(mods, cfg, params, prompts, card, forward_rtol, held):
-    """Serve the 8 requests, compare every stream with its solo
-    ``greedy_generate`` and the forward with the plain scan (held or
-    printed only).  Returns the serving run's launches."""
+def ssm_checks(mods, cfg, params, prompts, card, forward_rtol, held,
+               forward_held, use_kernel=True):
+    """Serve the 8 requests (``use_kernel`` False: through the plain
+    versions), compare every stream with its solo ``greedy_generate``
+    (held or printed only) and, on the kernel path, the forward with the
+    plain versions (held when ``forward_held``).  Returns the serving
+    run's launches."""
     dtype = "f32" if params["embed"]["table"].dtype == torch.float32 \
         else "bf16"
     served, launches, rec, _ = serve_run(mods, cfg, params, prompts,
                                          block_size=0, mode="greedy",
-                                         card=card)
+                                         card=card, use_kernel=use_kernel)
     if dtype == "bf16":
         eager, _, _, _ = serve_run(mods, cfg, params, prompts, block_size=0,
                                    mode="greedy", card=card, capture=False)
         same_streams(f"{cfg.name} bf16 dense greedy", eager, served)
-    solo, rec_solo = solo_greedy(mods, cfg, params, prompts, card)
-    compare_streams(f"{cfg.name} {dtype} dense greedy", solo, served,
-                    [rec_solo, rec], ([], []), len(prompts[0]), {},
+    solo, rec_solo = solo_greedy(mods, cfg, params, prompts, card,
+                                 use_kernel)
+    compare_streams(f"{cfg.name} {dtype} dense greedy"
+                    f"{'' if use_kernel else ' (plain versions)'}", solo,
+                    served, [rec_solo, rec], ([], []), len(prompts[0]), {},
                     base="solo greedy_generate", held=held)
-    check_forward(mods, cfg, params, prompts, forward_rtol, held=held)
+    if use_kernel:
+        check_forward(mods, cfg, params, prompts, forward_rtol,
+                      held=forward_held)
     return launches
 
 
-def count_launches(cfg, params, prompts, card) -> None:
+def mamba2_step(mods, cfg, params, prompts, card) -> None:
+    """One captured width-1 decode step of a Mamba2 model over 4
+    prefilled slots: its device time (CUDA events around the replay)
+    beside the weight bound (every parameter byte read once), and the
+    device time of the Mamba2 recurrence alone (``_mamba2_scan`` of every
+    Mamba2 layer at this step's shapes, captured into a graph of its own
+    and replayed): the share of the step its small per-position
+    operations take."""
+    from repro_torch.models import mamba
+    DecodeEngine = mods[0]
+    gc.collect()
+    eng = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN, device="cuda")
+    with Uncounted(mods):
+        eng.prefill_slots({s: prompts[s] for s in range(4)})
+        toks = torch.as_tensor(np.stack([p[:1] for p in prompts[4:8]]),
+                               device="cuda")
+        eng.warm_decode([1])
+        flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        step_ms = time_ms(lambda: eng.decode_slots(toks), flush)
+    s = cfg.ssm
+    nh = s.d_inner(cfg.d_model) // s.head_dim
+    g = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    layers = cfg.n_layers - cfg.count_layers("attn")
+    args = [(randn(4, 1, nh, s.head_dim), randn(4, 1, nh).sigmoid(),
+             randn(4, 1, nh, s.d_state), randn(4, 1, nh, s.d_state),
+             randn(4, nh, s.head_dim, s.d_state)) for _ in range(layers)]
+
+    def loops():
+        for a in args:
+            mamba._mamba2_scan(*a)
+    loop_ms = graph_ms(loops, flush)
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    bound = weight_bytes / PEAK_BYTES_S * 1e3
+    MAMBA2[cfg.name] = {"step_ms": step_ms, "bound_ms": bound,
+                        "loop_ms": loop_ms}
+    print(f"mamba2 step {cfg.name}: one captured width-1 decode step over 4 "
+          f"slots {step_ms:.4f} ms of device time against a weight bound of "
+          f"{bound:.4f} ms ({weight_bytes / 1e9:.3f} GB at "
+          f"{PEAK_BYTES_S / 1e12:.2f} TB/s; {bound / step_ms:.1%} of it); "
+          f"the Mamba2 recurrence of its {layers} layers alone "
+          f"{loop_ms:.4f} ms ({loop_ms / step_ms:.1%} of the step) [{card}]")
+    del eng
+
+
+def count_launches(cfg, params, prompts, card, use_kernel=True) -> None:
     """Device kernels of one eager width-1 decode forward over 4 slots
     (torch.profiler's kernel events), per layer: what a captured graph
     holds as nodes and an eager forward launches from the host."""
@@ -2439,7 +2580,7 @@ def count_launches(cfg, params, prompts, card) -> None:
 
     def run():
         forward(params, cfg, {"tokens": toks}, mode="decode", cache=cache,
-                cache_len=lens, use_kernel=True)
+                cache_len=lens, use_kernel=use_kernel)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -2451,28 +2592,31 @@ def count_launches(cfg, params, prompts, card) -> None:
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0) + 1
-    print(f"launches {cfg.name} {dtype}: {len(kernels)} device operations "
-          f"(kernels, copies, fills) in one width-1 decode forward, "
-          f"{len(kernels) / cfg.n_layers:.2f} per layer; most frequent: "
-          + ", ".join(f"{n[:60]} x{c}" for n, c in sorted(
+    print(f"launches {cfg.name} {dtype}"
+          f"{'' if use_kernel else ' (plain versions)'}: {len(kernels)} "
+          f"device operations (kernels, copies, fills) in one width-1 decode "
+          f"forward, {len(kernels) / cfg.n_layers:.2f} per layer; most "
+          f"frequent: " + ", ".join(f"{n[:60]} x{c}" for n, c in sorted(
               by_name.items(), key=lambda kv: -kv[1])[:8]) + f" [{card}]")
 
 
-def ssm_sensitivity(cfg, params, params32, prompts) -> None:
+def ssm_sensitivity(cfg, params, params32, prompts, f32_kernel=True) -> None:
     """How far two arithmetics of the same random-weight model part: the
     logits of 4 prompts run as one batch and one by one (same weights and
-    type), and bf16 against the same weights cast to float32."""
+    type), and bf16 against the same weights cast to float32 (through the
+    plain versions where the kernels take bf16 only)."""
     from repro_torch.models import forward
     toks = torch.as_tensor(np.stack(prompts[:4]), device="cuda")
 
-    def logits(p, t):
-        return forward(p, cfg, {"tokens": t}, use_kernel=True)[0].float()
+    def logits(p, t, use_kernel):
+        return forward(p, cfg, {"tokens": t},
+                       use_kernel=use_kernel)[0].float()
 
-    def batch_and_rows(p):
-        return logits(p, toks), torch.cat([logits(p, toks[i:i + 1])
-                                           for i in range(4)])
-    b4, b1 = batch_and_rows(params)
-    f4, f1 = batch_and_rows(params32)
+    def batch_and_rows(p, use_kernel):
+        return logits(p, toks, use_kernel), torch.cat(
+            [logits(p, toks[i:i + 1], use_kernel) for i in range(4)])
+    b4, b1 = batch_and_rows(params, True)
+    f4, f1 = batch_and_rows(params32, f32_kernel)
     for name, got, want in (("bf16 batch-1 vs batch-4", b1, b4),
                             ("f32 batch-1 vs batch-4", f1, f4),
                             ("bf16 vs f32, batch 4", b4, f4)):
@@ -2482,6 +2626,99 @@ def ssm_sensitivity(cfg, params, params32, prompts) -> None:
               f"agreement "
               f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.3f}"
               f", logit std {float(want.std()):.3g}")
+
+
+def whisper_forward(mods, arch, card, forward_rtol) -> dict:
+    """The encoder-decoder model's forward at full width (no engine serves
+    it: its forward needs the stub frontend's frame embeddings, which no
+    engine path passes, as in the reference).  Seeded random bf16
+    weights and ``n_frames`` frame embeddings for each of 4 rows: the
+    train forward over 64 tokens; a prefill of the first 48 into a dense
+    cache of MAX_LEN positions, then decode forwards of n = 1 and n = 16
+    at length 48, through the kernel and through the plain versions
+    (held within ``forward_rtol``), each also against the train forward's
+    same positions (held within ``forward_rtol``); decode-attention
+    launches = decoder layers x kernel decode forwards.  Then the device
+    time of one n = 1 decode forward beside the encoder's alone and the
+    decoder layers' cross K/V projections alone (each replayed as a CUDA
+    graph: device time without host launch gaps): the share of a decode
+    forward spent on the memory, which every call recomputes.  Returns
+    the launches."""
+    from repro_torch.models import forward, init_cache
+    from repro_torch.models.attention import encode_cross_kv
+    from repro_torch.models.transformer import _layer, encode
+    ops = mods[3]
+    cfg, params = model_params(arch)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    frames = torch.randn((4, cfg.encoder.n_frames, cfg.d_model), generator=g,
+                         device="cuda").to(torch.bfloat16)
+    toks = torch.as_tensor(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(4, 64)), device="cuda")
+    ops.decode_attention_ragged.launches = 0
+    t0 = time.perf_counter()
+    full = forward(params, cfg, {"tokens": toks, "frames": frames})[0].float()
+    torch.cuda.synchronize()
+    if full.shape != (4, 64, cfg.vocab_size) or not torch.isfinite(
+            full).all():
+        raise AssertionError(f"{cfg.name} train logits {tuple(full.shape)} "
+                             "not finite or of the wrong shape")
+    print(f"forward {cfg.name} train: 4 x 64 tokens over 4 x "
+          f"{cfg.encoder.n_frames} frames, finite logits "
+          f"{tuple(full.shape)} in {time.perf_counter() - t0:.3f} s [{card}]")
+    cache = init_cache(cfg, 4, MAX_LEN, torch.bfloat16, "cuda")
+    forward(params, cfg, {"tokens": toks[:, :48], "frames": frames},
+            mode="prefill", cache=cache)
+    lens = torch.full((4,), 48, dtype=torch.int32, device="cuda")
+
+    def decode(n, use_kernel):
+        return forward(params, cfg, {"tokens": toks[:, 48:48 + n],
+                                     "frames": frames}, mode="decode",
+                       cache=cache, cache_len=lens,
+                       use_kernel=use_kernel)[0].float()
+
+    def rel(got, want):
+        return float((got - want).norm() / want.norm())
+    for n in (1, 16):
+        got, plain = decode(n, True), decode(n, False)
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{cfg.name} decode n={n}: logits not "
+                                 "finite")
+        e_plain, e_full = rel(got, plain), rel(got, full[:, 48:48 + n])
+        agree = float((got.argmax(-1) == plain.argmax(-1)).float().mean())
+        print(f"forward {cfg.name} decode n={n} at length 48: kernel vs "
+              f"plain versions logits relative error {e_plain:.3g}, argmax "
+              f"agreement {agree:.3f}; prefill + decode vs the train "
+              f"forward {e_full:.3g} (limit {forward_rtol} each)")
+        if e_plain > forward_rtol or e_full > forward_rtol:
+            raise AssertionError(f"{cfg.name} decode n={n} leaves its "
+                                 "reference forward")
+    launches = {"dense": ops.decode_attention_ragged.launches, "paged": 0,
+                "moe": 0, "scan": 0}
+    if launches["dense"] != kernel_layers(cfg)["attn"] * 2:
+        raise AssertionError(f"{cfg.name}: {launches['dense']} decode "
+                             f"attention launches, expected "
+                             f"{kernel_layers(cfg)['attn']} x 2")
+    # the device time of one decode forward and of what it recomputes,
+    # each replayed as a CUDA graph (no host launch gaps)
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    with Uncounted(mods):
+        fwd_ms = graph_ms(lambda: decode(1, True), flush)
+    enc_ms = graph_ms(lambda: encode(params, cfg, frames), flush)
+    memory = encode(params, cfg, frames)
+    crosses = [_layer(sp, i)["cross"] for sp in params["segments"]
+               for i in range(sp["ln1"]["scale"].shape[0])]
+    cross_ms = graph_ms(lambda: [encode_cross_kv(c, cfg.attention, memory)
+                                 for c in crosses], flush)
+    WHISPER[cfg.name] = {"decode_ms": fwd_ms, "encode_ms": enc_ms,
+                         "cross_kv_ms": cross_ms}
+    print(f"whisper decode {cfg.name}: one n=1 decode forward over 4 rows "
+          f"{fwd_ms:.4f} ms of device time; re-encoding the "
+          f"{cfg.encoder.n_frames} frames {enc_ms:.4f} ms "
+          f"({enc_ms / fwd_ms:.1%}), re-projecting the cross K/V of "
+          f"{len(crosses)} layers {cross_ms:.4f} ms "
+          f"({cross_ms / fwd_ms:.1%}); together "
+          f"{(enc_ms + cross_ms) / fwd_ms:.1%} of the forward [{card}]")
+    return {"forward": launches}
 
 
 def _to_f32(tree):
@@ -2512,7 +2749,8 @@ def cli_runs():
     stablelm_3b on the simulated H100 clock, then on the wall clock
     (writing the scorecard); then wedlm8b_like and granite_moe_3b_a800m
     served speculative with ``--calibration run`` and then ``load`` (4
-    slots, a dense 1024-position cache: the calibration's engine)."""
+    slots, a dense 1024-position cache: the calibration's engine); then
+    full-width zamba2_1p2b served dense greedy (8 requests x 32 tokens)."""
     calib = OUT / "calibration"
     out = [("stablelm_pinned_simulated",
             ["--trace", "pinned", "--trace-clock", "simulated"]),
@@ -2526,6 +2764,9 @@ def cli_runs():
                 "--prompt-len", "48", "--serve-mode", "speculative",
                 "--max-len", str(CALIB_MAX_LEN), "--calibration", how,
                 "--calibration-path", str(calib / f"{arch}_serve.json")]))
+    out.append(("zamba2_greedy", [
+        "--arch", "zamba2_1p2b", "--requests", "8", "--tokens", "32",
+        "--prompt-len", "48", "--serve-mode", "greedy"]))
     return out
 
 
@@ -2578,6 +2819,14 @@ def print_summary(card) -> None:
           f"(torch.cuda.max_memory_allocated) [{card}]")
     for arch, gb in MEMORY.items():
         print(f"  {arch}: {gb:.2f} GB")
+    for name, r in MAMBA2.items():
+        print(f"summary: {name} captured width-1 step {r['step_ms']:.4f} ms, "
+              f"weight bound {r['bound_ms']:.4f} ms, Mamba2 recurrence "
+              f"{r['loop_ms']:.4f} ms [{card}]")
+    for name, r in WHISPER.items():
+        print(f"summary: {name} n=1 decode forward {r['decode_ms']:.4f} ms, "
+              f"encoder {r['encode_ms']:.4f} ms, cross K/V "
+              f"{r['cross_kv_ms']:.4f} ms [{card}]")
 
 
 # run-name prefix of a model's serving runs in the kernels line (the first
@@ -2651,8 +2900,7 @@ def main() -> int:
                   f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, "
                   f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}), "
                   f"executed-tile bound {r['tile_bound_ms']:.5f} ms [{card}]")
-    # mixtral's, starcoder2's, phi3_medium's and phi3_vision's geometries,
-    # at wedlm8b_like's serving lengths
+    # the geometries of NEW_GEOMETRIES at wedlm8b_like's serving lengths
     times_new = {arch: {n: time_kernels(ops, n, shape=shape,
                                         lens=wedlm["lens"])
                         for n in (1, 16)}
@@ -2752,7 +3000,9 @@ def main() -> int:
              MOE_FORWARD_RTOL),
             ("starcoder2_3b", serve_light, FORWARD_RTOL),
             ("phi3_medium_14b", serve_light, FORWARD_RTOL),
-            ("phi3_vision_4p2b", serve_light, FORWARD_RTOL)):
+            ("phi3_vision_4p2b", serve_light, FORWARD_RTOL),
+            ("zamba2_1p2b", serve_ssm, FORWARD_RTOL),
+            ("whisper_tiny", whisper_forward, FORWARD_RTOL)):
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         prefix = RUN_PREFIX.get(arch, arch.split("_")[0])

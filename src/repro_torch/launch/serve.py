@@ -26,6 +26,8 @@ on the simulator backend, replays on the simulated clock):
       --serve-mode diffusion --kv-block-size 16 --tokens 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch falcon_mamba_7b --tiny --serve-mode greedy
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
+      --arch zamba2_1p2b --tiny --serve-mode greedy
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tiny \
       --requests 4 --calibration run --calibration-path /tmp/c.json
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tiny \
@@ -34,8 +36,11 @@ One request through a single-request driver (batch 1, dense cache):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch wedlm8b_like --tiny --algorithm diffusion --tokens 24
 
-An SSM model (falcon_mamba_7b) serves greedy on the dense cache only:
-``--kv-block-size`` and every other serve mode are refused.
+A model with recurrent state (falcon_mamba_7b; the hybrid zamba2_1p2b)
+serves greedy on the dense cache only: ``--kv-block-size`` and every
+other serve mode are refused.  whisper_tiny is refused: its forward
+needs frame embeddings, which no engine path passes (as in the
+reference).
 
 Weights (and the 4-head MTP bank) are random, drawn from ``--seed``;
 prompts come from a numpy generator with the same seed.  The NFP budget

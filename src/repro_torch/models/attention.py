@@ -24,7 +24,11 @@ and return the same dict, so a captured decode step replays static
 addresses.  For attention-only models that is safe without the
 reference's functional copy: a row's writes land at or past its
 committed length, which every causal mask hides until a later forward
-overwrites them.  Cross-attention is not ported.
+overwrites them.
+
+Cross-attention (whisper's decoder) attends to the encoder memory with an
+all-true mask and no rotary; its K/V are projected from the memory on
+every call (``encode_cross_kv``) and never cached, as in the reference.
 """
 from __future__ import annotations
 
@@ -277,6 +281,27 @@ def gqa_decode_ring(params, a: AttentionSpec, x: Tensor, cache: Dict,
     ctx = gqa_core(q, cache["k"], cache["v"], mask,
                    1.0 / (a.head_dim ** 0.5))
     return ctx.reshape(b, n, -1) @ params["wo"], cache
+
+
+def cross_attention(params, a: AttentionSpec, x: Tensor, enc_k: Tensor,
+                    enc_v: Tensor) -> Tensor:
+    """Whisper's decoder cross-attention: x (b, n, d) attends to the
+    encoder memory's K/V (b, F, kv, dh), every frame visible."""
+    b, n, _ = x.shape
+    q = (x @ params["wq"]).reshape(b, n, a.n_heads, a.head_dim)
+    mask = torch.ones((b, n, enc_k.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    ctx = gqa_core(q, enc_k, enc_v, mask, 1.0 / (a.head_dim ** 0.5))
+    return ctx.reshape(b, n, -1) @ params["wo"]
+
+
+def encode_cross_kv(params, a: AttentionSpec, memory: Tensor
+                    ) -> Tuple[Tensor, Tensor]:
+    """The cross-attention K/V (b, F, kv, dh) of the encoder memory."""
+    b, f, _ = memory.shape
+    k = (memory @ params["wk"]).reshape(b, f, a.n_kv_heads, a.head_dim)
+    v = (memory @ params["wv"]).reshape(b, f, a.n_kv_heads, a.head_dim)
+    return k, v
 
 
 # ===========================================================================

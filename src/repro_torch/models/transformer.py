@@ -1,5 +1,7 @@
-"""Decoder assembly: attention segments (dense or MoE FFN) and Mamba1 SSM
-segments.
+"""Model assembly: attention segments (dense or MoE FFN), SSM segments
+(Mamba1 or Mamba2), hybrid segments (a Mamba2 block then ONE shared
+attention + MLP block, zamba2-style) and the whisper-style encoder with
+the decoder's cross-attention.
 
 Layers are grouped into *segments* of identical kind, and each segment's
 parameters and cache are STACKED along a leading layer axis, exactly as
@@ -7,40 +9,53 @@ the reference lays out its pytree (so ``bridge.params_from_jax`` maps one
 onto the other leaf for leaf).  Where the reference runs ``lax.scan``
 over the stacked leaves, the port runs a Python loop over layer views of
 the same tensors.  Attention caches are written in place through those
-views; SSM states are not: each SSM segment's new (conv, ssm) state is a
-new stacked tensor in the returned cache, for the engine to commit per
-row.
+views; SSM states are not: each SSM segment's new state (and each hybrid
+segment's ``ssm_state``) is a new stacked tensor in the returned cache,
+for the engine to commit per row, while a hybrid segment's ``attn`` K/V
+are written in place like any attention cache.
 
 Modes:
   train   — full causal self-attention, no cache.
   prefill — same math, fills the cache from position 0: attention writes
-            its K/V from position 0 and SSM layers start from a ZERO state
-            (whatever the cache held), so a reused cache row cannot leak
-            an earlier request's recurrent state into the prompt.
+            its K/V from position 0 and SSM layers (hybrid ones included)
+            start from a ZERO state (whatever the cache held), so a reused
+            cache row cannot leak an earlier request's recurrent state
+            into the prompt.
   decode  — the multi-position decode forward (Eq. 2): N new positions
             against a cache of length ``cache_len``.
 The FFN is a dense MLP or the MoE FFN (``models.moe``); ``use_kernel``
-reaches the MoE FFN and the selective scan in every mode and GQA / SWA
-attention in decode mode (prefill attention and MLA have no kernel).
-Attention is GQA, sliding-window GQA (optionally decoding over an
-O(window) ring buffer, ``swa_ring``) or MLA.  Hybrid segments, Mamba2,
-shared attention and the encoder are not ported.
+reaches the MoE FFN and the Mamba1 selective scan in every mode and GQA /
+SWA attention in decode mode, the hybrid layers' shared attention
+included (prefill attention, MLA, Mamba2, the encoder and cross-attention
+have no kernel, as in the reference).  Attention is GQA, sliding-window
+GQA (optionally decoding over an O(window) ring buffer, ``swa_ring``) or
+MLA.
+
+A model with an encoder (whisper) takes ``inputs["frames"]``, the stub
+frontend's (b, F, d) frame embeddings, and encodes them on EVERY call,
+decode included; every decoder layer projects the memory's cross K/V
+again.  Nothing of the memory is cached, as in the reference.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.core.arch import LAYER_ATTN, LAYER_SSM, ArchConfig
+from repro_torch.core.arch import (LAYER_ATTN, LAYER_HYBRID, LAYER_SSM,
+                                   ArchConfig)
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.kernels.decode_attention.ops import row_lens
 from repro_torch.models.attention import (attention_decode, attention_full,
+                                          cross_attention, encode_cross_kv,
                                           init_attention, init_kv_cache)
 from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
                                        init_mlp, init_rmsnorm, lm_head, mlp,
                                        rmsnorm, unembed_tied)
 from repro_torch.models.mamba import (init_mamba1, init_mamba1_state,
-                                      mamba1_block)
+                                      init_mamba2, init_mamba2_state,
+                                      mamba1_block, mamba2_block)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 Tensor = torch.Tensor
@@ -67,22 +82,26 @@ def has_ssm(cfg: ArchConfig) -> bool:
     return any(kind != LAYER_ATTN for kind, _ in make_segments(cfg))
 
 
-def check_ported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the architecture zoo the port lacks (every
-    attention kind — GQA, sliding window, MLA — is ported)."""
-    kinds = {kind for kind, _ in make_segments(cfg)}
-    if kinds - {LAYER_ATTN, LAYER_SSM}:
-        raise NotImplementedError(f"{cfg.name}: hybrid segments are not "
-                                  "ported yet")
-    if LAYER_SSM in kinds and cfg.ssm.kind != "mamba1":
-        raise NotImplementedError(f"{cfg.name}: {cfg.ssm.kind} SSM blocks "
-                                  "are not ported yet")
-    if cfg.encoder is not None or cfg.shared_attention:
-        raise NotImplementedError(f"{cfg.name}: encoders and shared "
-                                  "attention are not ported yet")
-    if LAYER_ATTN in kinds and cfg.ffn.kind not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: {cfg.ffn.kind} FFN is not "
-                                  "ported yet")
+def segment_states(kind: str, seg: Dict) -> Optional[Dict]:
+    """The recurrent-state leaves of a segment's cache, (layers, batch,
+    ...): all of an SSM segment's, a hybrid segment's ``ssm_state``, none
+    of an attention segment's."""
+    if kind == LAYER_SSM:
+        return seg
+    if kind == LAYER_HYBRID:
+        return seg["ssm_state"]
+    return None
+
+
+def segment_kv(kind: str, seg: Dict) -> Optional[Dict]:
+    """The K/V leaves of a segment's dense cache, (layers, batch, seq,
+    ...): all of an attention segment's, a hybrid segment's ``attn``, none
+    of an SSM segment's."""
+    if kind == LAYER_ATTN:
+        return seg
+    if kind == LAYER_HYBRID:
+        return seg["attn"]
+    return None
 
 
 def _layer(tree: Dict, i: int) -> Dict:
@@ -95,12 +114,39 @@ def _layer(tree: Dict, i: int) -> Dict:
 # Init
 # ===========================================================================
 
+def _init_segment(gen: torch.Generator, cfg: ArchConfig, kind: str,
+                  count: int, dtype) -> Dict:
+    """One segment's stacked layers, with the reference's leaves."""
+    d, lead = cfg.d_model, (count,)
+    p: Dict = {"ln1": init_rmsnorm(gen, d, dtype, lead)}
+    if kind != LAYER_ATTN:
+        init = init_mamba1 if cfg.ssm.kind == "mamba1" else init_mamba2
+        p["ssm"] = init(gen, d, cfg.ssm, dtype, lead)
+        if kind == LAYER_HYBRID:
+            p["ln_shared"] = init_rmsnorm(gen, d, dtype, lead)
+        return p
+    # the FFN is drawn before the attention: the seeded random weights of
+    # the chip checks, and the numbers recorded for them, follow this order
+    if cfg.ffn.kind == "moe":
+        p["ffn"] = init_moe(gen, d, cfg.ffn, dtype, lead)
+    elif cfg.ffn.kind == "dense":
+        p["ffn"] = init_mlp(gen, d, cfg.ffn.d_ff, cfg.ffn.activation, dtype,
+                            lead)
+    p["attn"] = init_attention(gen, d, cfg.attention, dtype, lead)
+    p["ln2"] = init_rmsnorm(gen, d, dtype, lead)
+    if cfg.encoder is not None:            # whisper decoder: cross-attention
+        p["ln_cross"] = init_rmsnorm(gen, d, dtype, lead)
+        p["cross"] = init_attention(gen, d, cfg.attention, dtype, lead)
+    return p
+
+
 def init_model(cfg: ArchConfig, generator: torch.Generator,
                device: DeviceLike = None, dtype=torch.bfloat16) -> Dict:
     """Random parameters with the reference's structure and scales, drawn
     from ``generator`` directly on ``device`` (the generator must live
-    there)."""
-    check_ported(cfg)
+    there): the stacked segments, the hybrid models' ``shared_attn``
+    (attention, ``ln2`` and an MLP of ``d_ff`` or 4·d) and the encoder
+    (stacked layers and its final norm)."""
     dev = resolve_device(device)
     if generator.device.type != dev.type:
         raise ValueError(f"generator on {generator.device}, parameters on "
@@ -112,27 +158,28 @@ def init_model(cfg: ArchConfig, generator: torch.Generator,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = init_lm_head(generator, d, cfg.vocab_size, dtype)
-    segs = []
-    for kind, count in make_segments(cfg):
-        lead = (count,)
-        if kind == LAYER_SSM:
-            segs.append({
+    params["segments"] = [_init_segment(generator, cfg, kind, count, dtype)
+                          for kind, count in make_segments(cfg)]
+    if cfg.shared_attention:
+        params["shared_attn"] = {
+            "attn": init_attention(generator, d, cfg.attention, dtype),
+            "ln2": init_rmsnorm(generator, d, dtype),
+            "ffn": init_mlp(generator, d, cfg.ffn.d_ff or 4 * d,
+                            cfg.ffn.activation, dtype),
+        }
+    if cfg.encoder is not None:
+        lead = (cfg.encoder.n_layers,)
+        params["encoder"] = {
+            "layers": {
                 "ln1": init_rmsnorm(generator, d, dtype, lead),
-                "ssm": init_mamba1(generator, d, cfg.ssm, dtype, lead),
-            })
-            continue
-        if cfg.ffn.kind == "moe":
-            ffn = init_moe(generator, d, cfg.ffn, dtype, lead)
-        else:
-            ffn = init_mlp(generator, d, cfg.ffn.d_ff, cfg.ffn.activation,
-                           dtype, lead)
-        segs.append({
-            "ln1": init_rmsnorm(generator, d, dtype, lead),
-            "attn": init_attention(generator, d, cfg.attention, dtype, lead),
-            "ln2": init_rmsnorm(generator, d, dtype, lead),
-            "ffn": ffn,
-        })
-    params["segments"] = segs
+                "attn": init_attention(generator, d, cfg.attention, dtype,
+                                       lead),
+                "ln2": init_rmsnorm(generator, d, dtype, lead),
+                "ffn": init_mlp(generator, d, cfg.ffn.d_ff,
+                                cfg.ffn.activation, dtype, lead),
+            },
+            "final_norm": init_rmsnorm(generator, d, dtype),
+        }
     return params
 
 
@@ -141,24 +188,33 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                swa_ring: bool = False, ring_headroom: int = 128) -> Dict:
     """Pre-allocated dense decode cache: per attention segment, (layers,
     batch, max_len, kv, dh) K and V (MLA: the latent and rotary key); per
-    SSM segment, (layers, batch, d_conv-1, di) conv history in ``dtype``
-    and (layers, batch, di, ds) f32 ssm state.
+    SSM segment, the stacked zero state of its block (conv histories in
+    ``dtype``, the ssm state f32); per hybrid segment ``{"ssm_state":
+    that state, "attn": K and V of max_len}``.
 
     ``swa_ring``: a sliding-window model allocates an O(window) RING
     buffer of window + ``ring_headroom`` decode positions, rounded up to
     16 and capped at ``max_len``, instead of O(max_len) — pair it with
-    ``forward(..., swa_ring=True)``."""
-    check_ported(cfg)
+    ``forward(..., swa_ring=True)``.  A hybrid segment's K/V keep
+    max_len, as in the reference."""
     dev = resolve_device(device)
     a = cfg.attention
     attn_len = max_len
     if swa_ring and a is not None and a.kind == "swa" and a.window:
         attn_len = min(max_len, (a.window + ring_headroom + 15) // 16 * 16)
-    return {"segments": [
-        init_mamba1_state(batch, cfg.d_model, cfg.ssm, dtype, dev, (count,))
-        if kind == LAYER_SSM else
-        init_kv_cache(batch, attn_len, a, dtype, dev, (count,))
-        for kind, count in make_segments(cfg)]}
+    segs = []
+    for kind, count in make_segments(cfg):
+        lead = (count,)
+        if kind == LAYER_ATTN:
+            segs.append(init_kv_cache(batch, attn_len, a, dtype, dev, lead))
+            continue
+        init = (init_mamba1_state if cfg.ssm.kind == "mamba1"
+                else init_mamba2_state)
+        state = init(batch, cfg.d_model, cfg.ssm, dtype, dev, lead)
+        segs.append(state if kind == LAYER_SSM else {
+            "ssm_state": state,
+            "attn": init_kv_cache(batch, max_len, a, dtype, dev, lead)})
+    return {"segments": segs}
 
 
 def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
@@ -168,7 +224,6 @@ def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
     pools); all layers share one logical block layout (the per-slot
     block tables of ``serving.paged``).  Paging covers K/V only: a model
     with recurrent state has no sequence axis to page."""
-    check_ported(cfg)
     if has_ssm(cfg):
         raise ValueError("paged KV cache supports attention-only "
                          f"architectures; {cfg.name} has SSM segments")
@@ -185,17 +240,21 @@ def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
 
 def _ffn_apply(lp, cfg: ArchConfig, h: Tensor, use_kernel: bool,
                routing_override) -> Tuple[Tensor, Optional[Tensor]]:
-    """(out, aux loss); a dense FFN has no aux loss (None)."""
+    """(out, aux loss); a dense FFN has no aux loss (None), and a layer
+    without an FFN adds zeros, as the reference's."""
     if cfg.ffn.kind == "moe":
         return moe_ffn(lp["ffn"], cfg.ffn, h,
                        routing_override=routing_override,
                        use_kernel=use_kernel)
-    return mlp(lp["ffn"], h, cfg.ffn.activation), None
+    if cfg.ffn.kind == "dense":
+        return mlp(lp["ffn"], h, cfg.ffn.activation), None
+    return torch.zeros_like(h), None
 
 
 def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
                 mode: str, use_kernel: bool, block_tables, routing_override,
-                swa_ring: bool = False) -> Tuple[Tensor, Optional[Tensor]]:
+                memory: Optional[Tensor], swa_ring: bool = False
+                ) -> Tuple[Tensor, Optional[Tensor]]:
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     if mode == "decode":
         att, _ = attention_decode(lp["attn"], cfg.attention, h, cache,
@@ -206,6 +265,10 @@ def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
                                 cfg.rope_theta, build_cache=cache,
                                 cache_len=0)
     x = x + att
+    if memory is not None and "cross" in lp:
+        hc = rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
+        ck, cv = encode_cross_kv(lp["cross"], cfg.attention, memory)
+        x = x + cross_attention(lp["cross"], cfg.attention, hc, ck, cv)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     ff, aux = _ffn_apply(lp, cfg, h2, use_kernel, routing_override)
     return x + ff, aux
@@ -214,26 +277,93 @@ def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
 def _ssm_layer(lp, cfg: ArchConfig, x: Tensor, state: Optional[Dict],
                use_kernel: bool) -> Tuple[Tensor, Optional[Dict]]:
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    out, new_state = mamba1_block(lp["ssm"], cfg.ssm, h, state, use_kernel)
+    if cfg.ssm.kind == "mamba1":
+        out, new_state = mamba1_block(lp["ssm"], cfg.ssm, h, state,
+                                      use_kernel)
+    else:
+        out, new_state = mamba2_block(lp["ssm"], cfg.ssm, h, state)
     return x + out, new_state
 
 
-def _ssm_segment(sp: Dict, sc: Optional[Dict], count: int, cfg: ArchConfig,
-                 x: Tensor, mode: str, use_kernel: bool
-                 ) -> Tuple[Tensor, Optional[Dict]]:
-    """Run an SSM segment's layers; returns (x, the segment's new stacked
-    state) — the state given is read, not written.  Prefill starts every
-    layer from a zero state."""
+def _hybrid_layer(lp, shared, cfg: ArchConfig, x: Tensor, positions,
+                  state: Optional[Dict], attn_cache: Optional[Dict],
+                  cache_len, mode: str, use_kernel: bool
+                  ) -> Tuple[Tensor, Optional[Dict]]:
+    """The SSM block, then the ONE shared attention + MLP block on the
+    layer's own ``ln_shared`` and its own K/V cache (written in place)."""
+    x, new_state = _ssm_layer(lp, cfg, x, state, use_kernel)
+    h = rmsnorm(lp["ln_shared"], x, cfg.norm_eps)
+    if mode == "decode":
+        att, _ = attention_decode(shared["attn"], cfg.attention, h,
+                                  attn_cache, cache_len, cfg.rope_theta,
+                                  use_kernel)
+    else:
+        att, _ = attention_full(shared["attn"], cfg.attention, h, positions,
+                                cfg.rope_theta, build_cache=attn_cache,
+                                cache_len=0)
+    x = x + att
+    h2 = rmsnorm(shared["ln2"], x, cfg.norm_eps)
+    return x + mlp(shared["ffn"], h2, cfg.ffn.activation), new_state
+
+
+def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
+                       cfg: ArchConfig, shared: Optional[Dict], x: Tensor,
+                       positions, cache_len, mode: str, use_kernel: bool
+                       ) -> Tuple[Tensor, Optional[Dict]]:
+    """Run an SSM or hybrid segment's layers; returns (x, the segment's
+    new cache): new stacked states (the states given are read, not
+    written) and, hybrid, the K/V given, written in place.  Prefill starts
+    every layer from a zero state."""
     states = []
     for i in range(count):
-        state = None if sc is None else _layer(sc, i)
+        lc = None if sc is None else _layer(sc, i)
+        state = None if lc is None else segment_states(kind, lc)
         if state is not None and mode == "prefill":
             state = {k: torch.zeros_like(v) for k, v in state.items()}
-        x, new_state = _ssm_layer(_layer(sp, i), cfg, x, state, use_kernel)
+        if kind == LAYER_SSM:
+            x, new_state = _ssm_layer(_layer(sp, i), cfg, x, state,
+                                      use_kernel)
+        else:
+            x, new_state = _hybrid_layer(
+                _layer(sp, i), shared, cfg, x, positions, state,
+                None if lc is None else lc["attn"], cache_len, mode,
+                use_kernel)
         states.append(new_state)
     if sc is None:
         return x, None
-    return x, {k: torch.stack([st[k] for st in states]) for k in sc}
+    new = {k: torch.stack([st[k] for st in states]) for k in states[0]}
+    return x, new if kind == LAYER_SSM else {"ssm_state": new,
+                                             "attn": sc["attn"]}
+
+
+def _sinusoidal(positions: Tensor, d: int) -> Tensor:
+    """(..., d) f32 sinusoidal embeddings of integer positions: sin over
+    the first half, cos over the second."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def encode(params, cfg: ArchConfig, frames: Tensor) -> Tensor:
+    """The whisper-style encoder over stub frame embeddings (b, F, d):
+    sinusoidal positions, then per layer rmsnorm, NON-causal attention
+    (with rotary) and the MLP, then the encoder's final norm."""
+    b, f, d = frames.shape
+    pos = torch.arange(f, dtype=torch.int32,
+                       device=frames.device)[None].expand(b, f)
+    x = (frames.float() + _sinusoidal(pos, d)).to(frames.dtype)
+    ep = params["encoder"]
+    for i in range(cfg.encoder.n_layers):
+        lp = _layer(ep["layers"], i)
+        h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+        att, _ = attention_full(lp["attn"], cfg.attention, h, pos,
+                                cfg.rope_theta, causal=False)
+        x = x + att
+        h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+        x = x + mlp(lp["ffn"], h2, cfg.ffn.activation)
+    return rmsnorm(ep["final_norm"], x, cfg.norm_eps)
 
 
 def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
@@ -245,8 +375,9 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     reference; the aux loss is summed over the MoE layers.
 
     Attention caches are updated in place and reappear in ``new_cache``;
-    SSM segments get NEW stacked states there (the given cache's states
-    are left as they were).  ``block_tables`` (b,
+    SSM segments (and hybrid segments' ``ssm_state``) get NEW stacked
+    states there (the given cache's states are left as they were).
+    ``block_tables`` (b,
     max_blocks) int32 switches decode-mode attention onto the PAGED pool
     (``init_paged_cache``) with a (b,) ``cache_len``.
     ``routing_override`` (idx (T, k), weights (T, k)) fixes every MoE
@@ -254,25 +385,40 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     decodes a sliding-window model over the ring buffer of
     ``init_cache(swa_ring=True)`` (dense cache, scalar ``cache_len``).
     ``hidden`` is the final-norm output (b, s, d) the LM head reads.
-    inputs: {"tokens": (b, s) int} or {"embeds": (b, s, d)}.
+    inputs: {"tokens": (b, s) int} or {"embeds": (b, s, d)}; a model with
+    an encoder adds {"frames": (b, F, d)}, whose encoding every call
+    recomputes; its decoder positions are offset by ``cache_len`` in
+    decode mode (a scalar or a (b,) vector).
     """
-    check_ported(cfg)
     if "embeds" in inputs:
         x = inputs["embeds"]
     else:
         x = embed(params["embed"], inputs["tokens"])
     b, s = x.shape[0], x.shape[1]
+    memory = None
+    if cfg.encoder is not None:
+        if "frames" not in inputs:
+            raise ValueError(f"{cfg.name} has an encoder: inputs need "
+                             "'frames', its (b, F, d) frame embeddings")
+        memory = encode(params, cfg, inputs["frames"])
+        pos0 = row_lens(cache_len if mode == "decode" else 0, b, x.device)
+        tok_pos = pos0[:, None] + torch.arange(s, dtype=torch.int32,
+                                               device=x.device)[None]
+        x = (x.float() + _sinusoidal(tok_pos, cfg.d_model)).to(x.dtype)
     positions = None
     if mode != "decode":
         positions = torch.arange(s, dtype=torch.int32,
                                  device=x.device)[None].expand(b, s)
+    shared = params.get("shared_attn")
     auxes = []
     new_segments = []
     for si, (kind, count) in enumerate(make_segments(cfg)):
         sp = params["segments"][si]
         sc = None if cache is None else cache["segments"][si]
-        if kind == LAYER_SSM:
-            x, sc = _ssm_segment(sp, sc, count, cfg, x, mode, use_kernel)
+        if kind != LAYER_ATTN:
+            x, sc = _recurrent_segment(kind, sp, sc, count, cfg, shared, x,
+                                       positions, cache_len, mode,
+                                       use_kernel)
             new_segments.append(sc)
             continue
         new_segments.append(sc)
@@ -280,7 +426,7 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             x, layer_aux = _attn_layer(
                 _layer(sp, i), cfg, x, positions,
                 None if sc is None else _layer(sc, i), cache_len, mode,
-                use_kernel, block_tables, routing_override, swa_ring)
+                use_kernel, block_tables, routing_override, memory, swa_ring)
             if layer_aux is not None:
                 auxes.append(layer_aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -18,7 +18,9 @@ only the rows of its group, so rows outside it stay bitwise unchanged.
 Recurrent SSM state has no length mask, so it is never written in place
 by a decode forward: ``forward`` returns new states, and the engine
 copies them into its cache's state tensors on commit (``commit_slots``
-keeps the old state of every row that advanced 0).  The cache's tensors
+keeps the old state of every row that advanced 0).  A hybrid segment
+holds both: its ``ssm_state`` leaves are committed so, its ``attn`` K/V
+are written in place.  The cache's tensors
 are allocated once and never rebound.  SSM models prefill at
 exact prompt lengths (bucket padding would run through the recurrence)
 and every prefill starts from a zero state, so a reused slot carries
@@ -39,14 +41,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.arch import LAYER_SSM, ArchConfig
+from repro_torch.core.arch import ArchConfig
 from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.granularity import GranularitySpec
 from repro_torch.core.hardware import H100, HardwareSpec
 from repro_torch.core.nfp import parallelism_budget
-from repro_torch.models.transformer import (check_ported, forward, has_ssm,
-                                            init_cache, init_paged_cache,
-                                            make_segments)
+from repro_torch.models.transformer import (forward, has_ssm, init_cache,
+                                            init_paged_cache, make_segments,
+                                            segment_kv, segment_states)
 from repro_torch.serving.capture import DecodeGraphs
 from repro_torch.serving.paged import BlockManager, PagedKVConfig
 
@@ -110,7 +112,10 @@ class DecodeEngine:
     last_hidden: Optional[Tensor] = field(init=False, default=None)
 
     def __post_init__(self):
-        check_ported(self.cfg)
+        if self.cfg.encoder is not None:
+            raise ValueError(
+                f"{self.cfg.name} has an encoder: its forward needs the "
+                "frame embeddings ('frames'), which no engine path passes")
         self.device = resolve_device(self.device)
         if self.use_kernel is None:
             self.use_kernel = self.device.type == "cuda"
@@ -181,7 +186,8 @@ class DecodeEngine:
         for (kind, _), old, new in zip(make_segments(self.cfg),
                                        self.cache["segments"],
                                        new_cache["segments"]):
-            if kind != LAYER_SSM:
+            old, new = segment_states(kind, old), segment_states(kind, new)
+            if old is None:
                 continue
             for k, v in new.items():
                 if keep is not None:
@@ -352,11 +358,10 @@ class DecodeEngine:
             idx = torch.as_tensor(rows, device=self.device)
             for kind, seg, sseg in zip(kinds, self.cache["segments"],
                                        scratch["segments"]):
-                for key, leaf in seg.items():
-                    if kind == LAYER_SSM:      # (layers, batch, ...) state
-                        leaf[:, idx] = sseg[key]
-                    else:                      # (layers, batch, seq, ...)
-                        leaf[:, idx, :width] = sseg[key]
+                for key, leaf in (segment_states(kind, seg) or {}).items():
+                    leaf[:, idx] = segment_states(kind, sseg)[key]
+                for key, leaf in (segment_kv(kind, seg) or {}).items():
+                    leaf[:, idx, :width] = segment_kv(kind, sseg)[key]
             for i, s in enumerate(rows):
                 self._set_slot_len(s, lens[s])
                 out[s] = (logits[i, lens[s] - 1], hidden[i, lens[s] - 1])

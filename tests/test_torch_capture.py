@@ -2,8 +2,9 @@
 ported model (reduced, bf16, through the kernels), ``decode_slots`` of a
 ``capture=True`` engine must give logits and hidden states BITWISE equal
 to a ``capture=False`` engine holding the same weights and cache, at
-widths 1, 5, 16 and 17, dense and paged (the SSM model dense, its
-committed state compared too), step after step with commits between;
+widths 1, 5, 16 and 17, dense and paged (the SSM and hybrid models
+dense, their committed states compared too), step after step with
+commits between;
 and the kernel launch counters must advance by exactly the eager
 forward's launches per replay, the capture itself counting none.
 
@@ -22,7 +23,7 @@ torch = pytest.importorskip("torch")
 pytestmark = pytest.mark.gpu
 
 ARCHS = ["stablelm_3b", "granite_moe_3b_a800m", "falcon_mamba_7b",
-         "wedlm8b_like", "llada_mini_like"]
+         "wedlm8b_like", "llada_mini_like", "zamba2_1p2b"]
 WIDTHS = (1, 5, 16, 17)
 SLOTS, MAX_LEN = 4, 128
 
@@ -55,7 +56,14 @@ def _engines(arch, paged):
 
 
 def _state(eng):
-    return [t.clone() for seg in eng.cache["segments"] for t in seg.values()]
+    """Every cache tensor, a hybrid segment's nested ones included."""
+    def leaves(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from leaves(v)
+        else:
+            yield tree
+    return [t.clone() for seg in eng.cache["segments"] for t in leaves(seg)]
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])

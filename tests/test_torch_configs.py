@@ -54,17 +54,25 @@ def test_config_equals_reference(arch, reduced):
 
 
 def test_registry_lists_the_ten_served_models():
-    assert set(NEW) <= set(ARCH_IDS) and len(ARCH_IDS) == 10
-    for arch in ("zamba2_1p2b", "whisper_tiny"):
-        with pytest.raises(ValueError, match="not ported"):
-            port_config(arch)
+    """Named when the port served ten of the reference's models; the
+    registry now lists all twelve, the reference's ``ARCH_IDS`` and
+    ``PAPER_IDS``, hybrid and encoder-decoder included."""
+    from repro.configs import ARCH_IDS as REF_IDS, PAPER_IDS
+    assert set(NEW) <= set(ARCH_IDS) and len(ARCH_IDS) == 12
+    assert set(ARCH_IDS) == set(REF_IDS) | set(PAPER_IDS)
+    assert port_config("zamba2_1p2b").family == "hybrid"
+    assert port_config("whisper_tiny").encoder.n_frames == 1500
+    with pytest.raises(ValueError, match="unknown architecture"):
+        port_config("gpt2")
 
 
-@pytest.mark.parametrize("arch", NEW)
+@pytest.mark.parametrize("arch", NEW + ["zamba2_1p2b", "whisper_tiny"])
 def test_port_init_has_reference_layout(arch):
     """The port's own ``init_model`` builds the reference's tree for each
-    new model (MLA leaves, the MoE's f32 router): same structure, stacked
-    shapes and dtypes (the values differ: another generator)."""
+    model ported since the MoE and SSM slices (MLA leaves, the MoE's f32
+    router, Mamba2's per-head f32 leaves, the shared attention block, the
+    encoder): same structure, stacked shapes and dtypes (the values
+    differ: another generator)."""
     from repro_torch.models import init_model as port_init
     ref = init_model(jax.random.PRNGKey(0), get_config(arch, reduced=True))
     port = port_init(port_config(arch, reduced=True),

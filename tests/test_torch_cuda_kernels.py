@@ -205,7 +205,8 @@ def test_paged_kernel_page_sizes(ops, heads, bs, n):
 
 
 GEOMETRIES = {"mixtral": (48, 8, 128), "starcoder2": (24, 2, 128),
-              "phi3_medium": (40, 10, 128), "phi3_vision": (32, 32, 96)}
+              "phi3_medium": (40, 10, 128), "phi3_vision": (32, 32, 96),
+              "zamba2": (32, 32, 64), "whisper": (6, 6, 64)}
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -215,8 +216,10 @@ GEOMETRIES = {"mixtral": (48, 8, 128), "starcoder2": (24, 2, 128),
 def test_served_geometries(ops, heads, n, paged):
     """The GQA folds of mixtral, starcoder2, phi3_medium and phi3_vision:
     g = 6 (96 rows at n = 16), g = 12 (192 rows: three 64-row passes),
-    g = 4 at 40 heads, and MHA at dh 96; an empty, a short, a long and a
-    full row, with and without a window; executed tiles counted."""
+    g = 4 at 40 heads, and MHA at dh 96; zamba2's shared attention and
+    whisper's decoder, MHA at dh 64 with 32 and 6 heads; an empty, a
+    short, a long and a full row, with and without a window; executed
+    tiles counted."""
     h, kv, dh = heads
     g = torch.Generator(device="cuda").manual_seed(300 + n)
     s = 256

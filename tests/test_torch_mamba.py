@@ -190,8 +190,22 @@ def test_mamba1_block_matches_reference(block, mode, use_kernel):
 
 
 def test_mamba2_is_not_ported():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        mamba.mamba2_block({}, PORT_SPEC, torch.zeros(1, 1, 4))
+    """Named when Mamba2 raised; it is ported now
+    (``tests/test_torch_mamba2.py`` holds it against the reference): one
+    block of the port's own init runs, full and decode, to finite outputs
+    and a state of the reference's shapes."""
+    spec = port_arch.SSMSpec(kind="mamba2", d_state=8, d_conv=4, expand=2,
+                             head_dim=16, n_groups=2)
+    params = mamba.init_mamba2(torch.Generator().manual_seed(0), 32, spec,
+                               torch.float32)
+    x = torch.randn(2, 5, 32, generator=torch.Generator().manual_seed(1))
+    out, none = mamba.mamba2_block(params, spec, x)
+    assert none is None and out.shape == x.shape
+    state = mamba.init_mamba2_state(2, 32, spec, torch.float32, "cpu")
+    out, new = mamba.mamba2_block(params, spec, x, state)
+    assert torch.isfinite(out).all()
+    assert new["ssm"].shape == (2, 4, 16, 8)
+    assert new["convB"].shape == new["convC"].shape == (2, 3, 16)
 
 
 # ---------------------------------------------------------------------------
@@ -523,13 +537,20 @@ def _port_cfg(ref_cfg):
 
 
 def test_zamba2_is_not_ported():
-    """zamba2_1p2b (hybrid segments, Mamba2, shared attention) still
-    raises, and the port's registry does not list it."""
-    cfg = _port_cfg(get_config("zamba2_1p2b", reduced=True))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        port_init(cfg, torch.Generator(), "cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        port_config("zamba2_1p2b")
+    """Named when zamba2_1p2b raised; it is ported now: the port's
+    ``init_model`` builds the reference's tree for it (Mamba2 and hybrid
+    segments, the one ``shared_attn`` block), same shapes and dtypes, and
+    its registry entry equals the reference config."""
+    ref_cfg = get_config("zamba2_1p2b", reduced=True)
+    cfg = _port_cfg(ref_cfg)
+    assert cfg == port_config("zamba2_1p2b", reduced=True)
+    ref = init_model(jax.random.PRNGKey(0), ref_cfg)
+    port = port_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert jax.tree.structure(port) == jax.tree.structure(ref)
+    for r, p in zip(jax.tree.leaves(ref), jax.tree.leaves(port)):
+        assert tuple(p.shape) == r.shape
+        assert p.dtype == (torch.bfloat16 if r.dtype == jnp.bfloat16
+                           else torch.float32)
 
 
 # ---------------------------------------------------------------------------
