@@ -179,7 +179,29 @@ Phases, in order; any failure exits non-zero:
                 zamba2_1p2b dense greedy.  A summary of
                 eager vs captured tok/s, idle shares and the calibration
                 table and the memory peaks follow.
-  6. report   — one JSON line of kernels (launches summed over every run
+  6. train    — the training path (``repro_torch.training``; it reaches no
+                kernel, as the reference's reaches no Pallas kernel: every
+                launch count must stay 0).  (a) stablelm_3b at full width
+                and 2 of its 32 layers in float32 (TF32 off), batch 2 x 64:
+                ``loss_fn`` and every gradient leaf on the card against the
+                same port code on the CPU (loss relative error <= 1e-4,
+                each leaf normwise <= 1e-3), and on the card remat True and
+                0.5 against False and n_micro 2 against 1 (normwise <=
+                1e-4).  (b) full-size stablelm_3b (32 layers, 2.8e9
+                parameters, bf16 weights, f32 AdamW state): 20 train_steps
+                at global batch 8 x 256, n_micro 2, remat True, lr 3e-4,
+                warmup 4, on SyntheticLM seed 0; every loss finite and the
+                mean of the last 5 below the first; prints the loss curve,
+                the median step time over steps 3-20 (each ending in a
+                synchronize), tokens/s, the model-FLOP share (6 N T over
+                the step over 989e12, remat's extra 2 N T beside it), the
+                gradient and optimizer parts of a step, steps with remat
+                False, and the memory peaks.  (c) the train CLI
+                (``repro_torch.launch.train``): tiny stablelm_3b, 50 steps at
+                lr 1e-2 (last loss < 0.85 x the first), then --steps 60 on
+                the same directory (resumes at 50), and the final
+                checkpoint restored bitwise equal to the state in memory.
+  7. report   — one JSON line of kernels (launches summed over every run
                 above), the command time, the card line, and the final
                 {"ok": true, ...} line.
 """
@@ -2829,6 +2851,253 @@ def print_summary(card) -> None:
               f"{r['cross_kv_ms']:.4f} ms [{card}]")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training
+# ---------------------------------------------------------------------------
+
+# (a): float32 on both devices, TF32 off; a float32 sum of the same terms
+# in another order (cuBLAS against the CPU's BLAS) moves a relative
+# 1e-7-1e-6; the bounds leave room for the backward's longer sums
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 1e-3
+TRAIN_REMAT_RTOL = 1e-4
+TRAIN_CHECK_LAYERS = 2
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_N_MICRO = 8, 256, 2
+# steps of the decomposed step (gradients, then the optimizer) and of
+# remat False, after the 20; the first of each is a warm-up
+TRAIN_EXTRA_STEPS = 4
+TRAIN = {}
+
+
+def _rel_norm(got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _grad_errors(grads, want) -> float:
+    return max(_rel_norm(a, b) for a, b in zip(_leaves(grads), _leaves(want)))
+
+
+def train_check(card) -> None:
+    """(a) ``loss_fn`` and its gradients on the card against the CPU (the
+    same port code the CPU tests hold against the reference), then remat
+    and micro-batching on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import init_model
+    from repro_torch.training import grad_accum_fn, loss_fn
+    from repro_torch.training.train_step import value_and_grad
+    cfg = dataclasses.replace(get_config("stablelm_3b"),
+                              n_layers=TRAIN_CHECK_LAYERS)
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda", torch.float32)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 64))
+    batch = {"tokens": torch.as_tensor(toks, device="cuda")}
+    (loss, _), grads = value_and_grad(loss_fn, params, cfg, batch, 0.01,
+                                      False)
+    t0 = time.perf_counter()
+    (cpu_loss, _), cpu_grads = value_and_grad(
+        loss_fn, tree_map(lambda t: t.cpu(), params), cfg,
+        {"tokens": torch.as_tensor(toks)}, 0.01, False)
+    cpu_s = time.perf_counter() - t0
+    loss_err = abs(float(loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    grad_err = _grad_errors(grads, cpu_grads)
+    errs = {}
+    for remat in (True, 0.5):
+        _, g = value_and_grad(loss_fn, params, cfg, batch, 0.01, remat)
+        errs[f"remat {remat}"] = _grad_errors(g, grads)
+    g2, loss2, _ = grad_accum_fn(params, cfg, batch, 2, 0.01, False)
+    errs["n_micro 2"] = max(_grad_errors(g2, grads),
+                            _rel_norm(loss2, loss))
+    n = sum(t.numel() for t in _leaves(params))
+    print(f"train check {cfg.name} ({cfg.n_layers} of "
+          f"{get_config('stablelm_3b').n_layers} layers, full "
+          f"width, {n:.4g} parameters, float32, batch 2 x 64): loss "
+          f"{float(loss):.6f} on the card, {float(cpu_loss):.6f} on the CPU "
+          f"({cpu_s:.1f} s): relative error {loss_err:.3g} (limit "
+          f"{TRAIN_LOSS_RTOL:g}); worst gradient leaf {grad_err:.3g} "
+          f"normwise (limit {TRAIN_GRAD_RTOL:g}); on the card against remat "
+          f"False, n_micro 1: " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in errs.items())
+          + f" (limit {TRAIN_REMAT_RTOL:g}) [{card}]")
+    if (loss_err > TRAIN_LOSS_RTOL or grad_err > TRAIN_GRAD_RTOL
+            or max(errs.values()) > TRAIN_REMAT_RTOL):
+        raise AssertionError("train check: card against CPU or remat / "
+                             "n_micro out of bounds")
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_full(card) -> None:
+    """(b) 20 steps of full-size stablelm_3b through ``train_step``, then
+    the step decomposed (its gradients, then ``adamw_update``: what
+    ``train_step`` runs for n_micro > 1) and with remat False."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, adamw_update,
+                                      grad_accum_fn, init_opt_state,
+                                      make_train_step)
+    cfg = get_config("stablelm_3b")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    opt = init_opt_state(params)
+    n = sum(t.numel() for t in _leaves(params))
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=4, total_steps=TRAIN_STEPS)
+    data = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    t0 = time.perf_counter()
+    batches = [{"tokens": torch.as_tensor(next(data)["tokens"],
+                                          device="cuda")}
+               for _ in range(TRAIN_STEPS + 2 * TRAIN_EXTRA_STEPS + 2)]
+    data_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    step = make_train_step(cfg, opt_cfg, n_micro=TRAIN_N_MICRO, remat=True)
+    losses, times = [], []
+    for b in batches[:TRAIN_STEPS]:
+        (params, opt, m), dt = _timed(lambda: step(params, opt, b))
+        losses.append(m["loss"])
+        times.append(dt)
+    losses = torch.stack(losses).tolist()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[2:])
+    print(f"train {cfg.name}: {cfg.n_layers} layers, {n:.4g} parameters "
+          f"(bf16 weights, f32 master / m / v: {state_gb:.2f} GB), "
+          f"{TRAIN_STEPS} steps at batch {TRAIN_BATCH} x {TRAIN_SEQ}, n_micro "
+          f"{TRAIN_N_MICRO}, remat True, SyntheticLM seed 0 ({data_s:.1f} s "
+          f"to draw the batches)")
+    print("train loss curve: " + ", ".join(f"{x:.4f}" for x in losses))
+    print(f"train step (median of steps 3-{TRAIN_STEPS}, host clock ending "
+          f"in a synchronize): {1e3 * step_s:.1f} ms, "
+          f"{tokens / step_s:.0f} tokens/s; model-FLOP share 6NT "
+          f"{6 * n * tokens / step_s / PEAK_BF16_FLOPS:.1%}, with remat's "
+          f"recompute 8NT {8 * n * tokens / step_s / PEAK_BF16_FLOPS:.1%} "
+          f"of {PEAK_BF16_FLOPS:.3g} FLOP/s; first step "
+          f"{1e3 * times[0]:.1f} ms; memory peak {peak:.2f} GB [{card}]")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if not np.mean(losses[-5:]) < losses[0]:
+        raise AssertionError(f"train: the loss did not fall: {losses}")
+    grad_s, opt_s = [], []
+    for b in batches[TRAIN_STEPS:TRAIN_STEPS + TRAIN_EXTRA_STEPS]:
+        (grads, _, _), dt = _timed(lambda: grad_accum_fn(
+            params, cfg, b, TRAIN_N_MICRO, 0.01, True))
+        grad_s.append(dt)
+        _, dt = _timed(lambda: adamw_update(opt_cfg, params, grads, opt))
+        opt_s.append(dt)
+        del grads
+    grad_s, opt_s = statistics.median(grad_s[1:]), statistics.median(opt_s[1:])
+    # AdamW's least traffic: read the f32 grads, read and write master, m
+    # and v, write the bf16 params
+    opt_bound = n * (4 + 3 * 8 + 2) / PEAK_BYTES_S
+    print(f"train step decomposed (median of {TRAIN_EXTRA_STEPS - 1}): "
+          f"gradients {1e3 * grad_s:.1f} ms, adamw_update "
+          f"{1e3 * opt_s:.1f} ms ({opt_s / (grad_s + opt_s):.1%} of the "
+          f"step; its byte bound {1e3 * opt_bound:.1f} ms) [{card}]")
+    TRAIN.update(step_ms=1e3 * step_s, tokens_s=tokens / step_s,
+                 mfu=6 * n * tokens / step_s / PEAK_BF16_FLOPS,
+                 grad_ms=1e3 * grad_s, opt_ms=1e3 * opt_s, peak_gb=peak,
+                 losses=losses)
+    train_profile("remat True", step, params, opt, batches[-2], card)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    nr_step = make_train_step(cfg, opt_cfg, n_micro=TRAIN_N_MICRO,
+                              remat=False)
+    nr_times = []
+    try:
+        for b in batches[TRAIN_STEPS + TRAIN_EXTRA_STEPS:-2]:
+            (params, opt, m), dt = _timed(lambda: nr_step(params, opt, b))
+            nr_times.append(dt)
+    except torch.cuda.OutOfMemoryError:
+        print(f"train remat False: does not fit in the card's memory "
+              f"[{card}]")
+        return
+    nr_s = statistics.median(nr_times[1:])
+    nr_peak = torch.cuda.max_memory_allocated() / 1e9
+    TRAIN.update(no_remat_ms=1e3 * nr_s, no_remat_peak_gb=nr_peak)
+    print(f"train step remat False (median of {len(nr_times) - 1}): "
+          f"{1e3 * nr_s:.1f} ms, {tokens / nr_s:.0f} tokens/s, model-FLOP "
+          f"share {6 * n * tokens / nr_s / PEAK_BF16_FLOPS:.1%}; remat "
+          f"True costs {step_s / nr_s - 1:.1%} more time; memory peak "
+          f"{nr_peak:.2f} GB against {peak:.2f} [{card}]")
+    train_profile("remat False", nr_step, params, opt, batches[-1], card)
+
+
+def train_profile(label, step, params, opt, batch, card, top=8) -> None:
+    """torch.profiler over one more train step: the device's busy share
+    of its wall time (the profiler's host tracing inflates the wall), its
+    device operations, and the ``top`` kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {e.key: e.self_device_time_total / 1e3 for e in kernels}
+    total = sum(busy.values())
+    if total == 0:
+        print("train profile: the profiler recorded no device time (not "
+              "measured)")
+        return
+    ops = sum(e.count for e in kernels)
+    TRAIN[f"profile {label}"] = {"wall_ms": wall_ms, "busy_ms": total,
+                                 "device_ops": ops}
+    print(f"train profile {label} (one step under the profiler): wall "
+          f"{wall_ms:.1f} ms, device busy {total:.1f} ms "
+          f"({total / wall_ms:.1%}), idle {1 - total / wall_ms:.1%}, "
+          f"{ops} device operations [{card}]")
+    for name, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:8.3f} ms  {100 * ms / total:5.1f}%  {name[:90]}")
+
+
+def train_cli(card) -> None:
+    """(c) The train CLI in-process: 50 steps, a resume to 60, the final
+    checkpoint against the state in memory."""
+    import shutil
+    from repro_torch.checkpoint import restore
+    from repro_torch.launch.train import build_parser, train
+    ckpt = OUT / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", "stablelm_3b", "--tiny", "--lr", "1e-2", "--ckpt-dir",
+            str(ckpt), "--ckpt-every", "20"]
+    print("cli train: python -m repro_torch.launch.train "
+          + " ".join(argv + ["--steps", "50"]), flush=True)
+    first = train(build_parser().parse_args(argv + ["--steps", "50"]))
+    losses = first["losses"]
+    print(f"cli train: losses {losses[0]:.4f} -> {losses[-1]:.4f} "
+          f"({losses[-1] / losses[0]:.3f} of the first; limit 0.85) "
+          f"[{card}]")
+    if not (len(losses) == 50 and losses[-1] < 0.85 * losses[0]):
+        raise AssertionError(f"cli train: the loss did not fall: {losses}")
+    second = train(build_parser().parse_args(argv + ["--steps", "60"]))
+    if second["start"] != 50 or len(second["losses"]) != 10:
+        raise AssertionError(f"cli train: resumed at {second['start']} "
+                             f"with {len(second['losses'])} steps")
+    restored, meta = restore(str(ckpt), second["state"])
+    same = all(torch.equal(a, b) for a, b in
+               zip(_leaves(restored), _leaves(second["state"])))
+    print(f"cli train: resumed at step {second['start']}, ran "
+          f"{len(second['losses'])} steps to {meta['step']}; the final "
+          f"checkpoint restores bitwise equal to the state in memory: {same} "
+          f"[{card}]")
+    if not same or meta["step"] != 60:
+        raise AssertionError("cli train: the final checkpoint differs")
+
+
 # run-name prefix of a model's serving runs in the kernels line (the first
 # word of the arch id, where that is unique)
 RUN_PREFIX = {"phi3_medium_14b": "phi3medium",
@@ -3032,7 +3301,26 @@ def main() -> int:
     report_card(card)
     print_summary(card)
 
-    # 6. report
+    # 6. training: no kernel on its path; the counts must stay 0
+    t0 = time.perf_counter()
+    for fn in fns.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cli(card)
+    runs["train"] = {k: fn.launches for k, fn in fns.items()}
+    if any(runs["train"].values()):
+        raise AssertionError(f"train: kernels launched {runs['train']}")
+    print(f"phase train: {time.perf_counter() - t0:.1f} s, launches "
+          f"{runs['train']} [{card}]")
+
+    # 7. report
     src = "src/repro_torch/csrc/decode_attention.cu"
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,5 @@
-"""Weight bridge: the reference's parameter pytree -> the port's params.
+"""Weight bridge: the reference's parameter pytree (and its optimizer
+state) -> the port's.
 
 The reference ``init_model`` returns nested dicts and lists whose leaves
 are stacked per segment (one leading layer axis).  The port keeps the
@@ -37,3 +38,14 @@ def params_from_jax(tree: Any, device: torch.device | str = "cpu") -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_jax(v, device) for v in tree)
     return tensor_from_numpy(np.asarray(tree), device)
+
+
+def opt_state_from_jax(state: Any, device: torch.device | str = "cpu"
+                       ) -> Any:
+    """The reference's optimizer state ``{"master", "m", "v", "step"}``
+    (numpy leaves) as the port's: the same trees of tensors (``step`` its
+    int32 scalar) on ``device`` — so both packages can go on from the
+    same state after k steps."""
+    if set(state) != {"master", "m", "v", "step"}:
+        raise ValueError(f"not an AdamW state: keys {sorted(state)}")
+    return params_from_jax(state, device)

@@ -1,0 +1,6 @@
+"""repro_torch.dist — elastic / fault-tolerant training primitives (a
+copy of the reference's framework-free ``dist/elastic.py``)."""
+from repro_torch.dist.elastic import (StepWatchdog, elastic_mesh,
+                                      run_with_restarts)
+
+__all__ = ["StepWatchdog", "elastic_mesh", "run_with_restarts"]

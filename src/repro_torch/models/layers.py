@@ -8,7 +8,7 @@ points.  ``init_*`` take a ``torch.Generator`` and an optional leading
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,6 +43,22 @@ def rmsnorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-5) -> Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(gen: torch.Generator, d: int, dtype=torch.bfloat16,
+                   lead: Tuple[int, ...] = ()) -> Dict[str, Tensor]:
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=gen.device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=gen.device)}
+
+
+def layernorm(params: Dict[str, Tensor], x: Tensor, eps: float = 1e-5
+              ) -> Tensor:
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -117,3 +133,21 @@ def lm_head(params: Dict[str, Tensor], x: Tensor) -> Tensor:
 
 def unembed_tied(embed_params: Dict[str, Tensor], x: Tensor) -> Tensor:
     return x @ embed_params["table"].T
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: Tensor, labels: Tensor,
+                          mask: Optional[Tensor] = None) -> Tensor:
+    """Mean next-token CE in f32; logits (b, s, v), labels (b, s) int;
+    with ``mask`` (b, s) the masked mean over at least one position."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)

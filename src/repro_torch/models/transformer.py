@@ -42,6 +42,7 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.arch import (LAYER_ATTN, LAYER_HYBRID, LAYER_SSM,
                                    ArchConfig)
@@ -108,6 +109,36 @@ def _layer(tree: Dict, i: int) -> Dict:
     """Layer ``i``'s view of a stacked segment tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: Dict, count: int) -> List[Dict]:
+    """Every layer's view of a stacked segment tree, one ``unbind`` per
+    leaf.  Under autograd a stacked leaf's gradient is then ONE stack of
+    its layers' gradients; indexing each layer (``_layer``) would make a
+    zero-filled gradient of the whole stack per layer."""
+    out: List[Dict] = [{} for _ in range(count)]
+    for k, v in tree.items():
+        parts = _unstack(v, count) if isinstance(v, dict) else v.unbind(0)
+        for lp, part in zip(out, parts):
+            lp[k] = part
+    return out
+
+
+def remat_count(remat, count: int) -> int:
+    """How many leading layers of a ``count``-layer segment ``remat``
+    (False / True / a fraction in (0, 1)) recomputes in the backward
+    pass: round(frac * count), Python's round (half to even)."""
+    frac = 1.0 if remat is True else 0.0 if remat is False else float(remat)
+    return int(round(frac * count))
+
+
+def _call(fn, remat_layer: bool, *args):
+    """``fn(*args)``, under activation checkpointing where
+    ``remat_layer``: the layer's activations are not kept for the
+    backward pass but recomputed there (same values)."""
+    if remat_layer:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 # ===========================================================================
@@ -308,25 +339,26 @@ def _hybrid_layer(lp, shared, cfg: ArchConfig, x: Tensor, positions,
 
 def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
                        cfg: ArchConfig, shared: Optional[Dict], x: Tensor,
-                       positions, cache_len, mode: str, use_kernel: bool
-                       ) -> Tuple[Tensor, Optional[Dict]]:
+                       positions, cache_len, mode: str, use_kernel: bool,
+                       n_remat: int = 0) -> Tuple[Tensor, Optional[Dict]]:
     """Run an SSM or hybrid segment's layers; returns (x, the segment's
     new cache): new stacked states (the states given are read, not
     written) and, hybrid, the K/V given, written in place.  Prefill starts
-    every layer from a zero state."""
+    every layer from a zero state.  The first ``n_remat`` layers run under
+    activation checkpointing (no cache only)."""
     states = []
-    for i in range(count):
+    for i, lp in enumerate(_unstack(sp, count)):
         lc = None if sc is None else _layer(sc, i)
         state = None if lc is None else segment_states(kind, lc)
         if state is not None and mode == "prefill":
             state = {k: torch.zeros_like(v) for k, v in state.items()}
         if kind == LAYER_SSM:
-            x, new_state = _ssm_layer(_layer(sp, i), cfg, x, state,
-                                      use_kernel)
+            x, new_state = _call(_ssm_layer, i < n_remat, lp, cfg, x, state,
+                                 use_kernel)
         else:
-            x, new_state = _hybrid_layer(
-                _layer(sp, i), shared, cfg, x, positions, state,
-                None if lc is None else lc["attn"], cache_len, mode,
+            x, new_state = _call(
+                _hybrid_layer, i < n_remat, lp, shared, cfg, x, positions,
+                state, None if lc is None else lc["attn"], cache_len, mode,
                 use_kernel)
         states.append(new_state)
     if sc is None:
@@ -355,8 +387,7 @@ def encode(params, cfg: ArchConfig, frames: Tensor) -> Tensor:
                        device=frames.device)[None].expand(b, f)
     x = (frames.float() + _sinusoidal(pos, d)).to(frames.dtype)
     ep = params["encoder"]
-    for i in range(cfg.encoder.n_layers):
-        lp = _layer(ep["layers"], i)
+    for lp in _unstack(ep["layers"], cfg.encoder.n_layers):
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         att, _ = attention_full(lp["attn"], cfg.attention, h, pos,
                                 cfg.rope_theta, causal=False)
@@ -369,7 +400,7 @@ def encode(params, cfg: ArchConfig, frames: Tensor) -> Tensor:
 def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             cache: Optional[Dict] = None, cache_len=0,
             use_kernel: bool = False, block_tables: Optional[Tensor] = None,
-            routing_override=None, swa_ring: bool = False,
+            routing_override=None, swa_ring: bool = False, remat=False,
             ) -> Tuple[Tensor, Optional[Dict], Tensor, Tensor]:
     """Returns (logits, new_cache, moe_aux_loss, hidden), as the
     reference; the aux loss is summed over the MoE layers.
@@ -389,6 +420,11 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     an encoder adds {"frames": (b, F, d)}, whose encoding every call
     recomputes; its decoder positions are offset by ``cache_len`` in
     decode mode (a scalar or a (b,) vector).
+
+    ``remat`` (False / True / a fraction in (0, 1)): without a cache, the
+    first ``remat_count(remat, count)`` layers of each segment keep no
+    activations for the backward pass and recompute them there
+    (``torch.utils.checkpoint``); the values are unchanged.
     """
     if "embeds" in inputs:
         x = inputs["embeds"]
@@ -415,16 +451,17 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     for si, (kind, count) in enumerate(make_segments(cfg)):
         sp = params["segments"][si]
         sc = None if cache is None else cache["segments"][si]
+        n_remat = remat_count(remat, count) if cache is None else 0
         if kind != LAYER_ATTN:
             x, sc = _recurrent_segment(kind, sp, sc, count, cfg, shared, x,
                                        positions, cache_len, mode,
-                                       use_kernel)
+                                       use_kernel, n_remat)
             new_segments.append(sc)
             continue
         new_segments.append(sc)
-        for i in range(count):
-            x, layer_aux = _attn_layer(
-                _layer(sp, i), cfg, x, positions,
+        for i, lp in enumerate(_unstack(sp, count)):
+            x, layer_aux = _call(
+                _attn_layer, i < n_remat, lp, cfg, x, positions,
                 None if sc is None else _layer(sc, i), cache_len, mode,
                 use_kernel, block_tables, routing_override, memory, swa_ring)
             if layer_aux is not None:

@@ -9,7 +9,7 @@ from repro_torch.serving.diffusion import (DiffusionBlockDecoder,
                                            refine_block)
 from repro_torch.serving.engine import DecodeEngine, greedy_tokens
 from repro_torch.serving.mtp import (MTPDecoder, MTPSlotAdapter,
-                                     init_mtp_heads, mtp_propose)
+                                     init_mtp_heads, mtp_loss, mtp_propose)
 from repro_torch.serving.paged import (BlockAllocator, BlockManager,
                                        PagedKVConfig, PrefixCache)
 from repro_torch.serving.scheduler import (DEFAULT_SLO_CLASSES,
@@ -27,4 +27,4 @@ __all__ = ["AdmissionConfig", "AdmissionRejected", "BlockAllocator",
            "ParallelDecodeAlgorithm", "PrefixCache", "Request", "SLOClass",
            "ServingLoop", "SlotAdapter", "SpeculativeDecoder",
            "SpeculativeSlotAdapter", "greedy_tokens", "init_mtp_heads",
-           "mtp_propose", "ngram_draft", "refine_block"]
+           "mtp_loss", "mtp_propose", "ngram_draft", "refine_block"]

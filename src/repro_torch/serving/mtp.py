@@ -51,6 +51,24 @@ def mtp_propose(heads: Dict, hidden: Tensor) -> Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32).T
 
 
+def mtp_loss(heads: Dict, hidden: Tensor, tokens: Tensor) -> Tensor:
+    """Train the head bank: head h predicts the token at offset h + 2, in
+    f32.  hidden: (b, s, d); tokens: (b, s).  Heads whose offset reaches
+    past the sequence are skipped; the sum is divided by the bank size."""
+    n_heads = heads["heads"].shape[0]
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for h in range(n_heads):
+        off = h + 2
+        if tokens.shape[1] <= off:
+            break
+        logits = hidden[:, :-off].float() @ heads["heads"][h].float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1,
+                            tokens[:, off:].long()[..., None])[..., 0]
+        total = total + torch.mean(lse - gold)
+    return total / n_heads
+
+
 @dataclass
 class MTPDecoder(ParallelDecodeAlgorithm):
     """Single-request MTP: propose with the head bank from the real last
