@@ -62,7 +62,22 @@ Phases, in order; any failure exits non-zero:
                 launch floor (a one-element add_ under the same timing),
                 and prints the MoE kernel's M_moe / tau staircase over T
                 and the scan's M_ssm staircase over n.
-  4. serving  — every decode forward replays a CUDA graph per width (the
+  4. analysis — ``python -m repro_torch.analysis --check-baseline`` in a
+                subprocess (host syncs on the hot paths, recapture
+                hazards, the ctypes signatures against the extern "C"
+                lists, the launch tiles at the twelve configs' shapes,
+                drift against the pinned contract): any new finding fails.
+                Then ``kernel_contracts.LaunchRecorder`` wraps the loaded
+                libraries for the serving phases of stablelm_3b (both
+                decode-attention modes), granite_moe_3b_a800m (the MoE FFN)
+                and falcon_mamba_7b (the scan) below, and after them every
+                recorded launch is checked: its arity against the extern
+                "C" list, its scalars equal to the launch-args function at
+                the recorded shapes and the model's geometry, its tiles
+                within the kernel's limits, and the launched tiles equal to
+                the declared ones and to the pinned contract.  Prints the
+                distinct launch configurations of each entry point.
+  5. serving  — every decode forward replays a CUDA graph per width (the
                 captured decode step, ``serving.capture``).  For each
                 model first: captured against eager ``decode_slots`` at
                 n in {1, 5, 16, 17}, dense and paged (falcon dense): logits
@@ -168,7 +183,7 @@ Phases, in order; any failure exits non-zero:
                 N_max beside the analytic budget, its limiting term, n_idle,
                 the noise and both over-prediction ratios, and the
                 seconds each width's capture took.
-  5. cli      — through ``repro_torch.launch.serve``: the pinned trace
+  6. cli      — through ``repro_torch.launch.serve``: the pinned trace
                 replay (``loadgen.PINNED_STACK``, full-width stablelm_3b)
                 on the simulated H100 clock, then on the wall clock,
                 writing <out>/BENCH_serving_h100.json (TTFT, ITL,
@@ -179,7 +194,7 @@ Phases, in order; any failure exits non-zero:
                 zamba2_1p2b dense greedy.  A summary of
                 eager vs captured tok/s, idle shares and the calibration
                 table and the memory peaks follow.
-  6. train    — the training path (``repro_torch.training``; it reaches no
+  7. train    — the training path (``repro_torch.training``; it reaches no
                 kernel, as the reference's reaches no Pallas kernel: every
                 launch count must stay 0).  (a) stablelm_3b at full width
                 and 2 of its 32 layers in float32 (TF32 off), batch 2 x 64:
@@ -201,13 +216,14 @@ Phases, in order; any failure exits non-zero:
                 lr 1e-2 (last loss < 0.85 x the first), then --steps 60 on
                 the same directory (resumes at 50), and the final
                 checkpoint restored bitwise equal to the state in memory.
-  7. report   — one JSON line of kernels (launches summed over every run
+  8. report   — one JSON line of kernels (launches summed over every run
                 above), the command time, the card line, and the final
                 {"ok": true, ...} line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -3098,6 +3114,78 @@ def train_cli(card) -> None:
         raise AssertionError("cli train: the final checkpoint differs")
 
 
+# the serving phases whose kernel launches the analysis phase records:
+# decode attention in both modes, the MoE FFN, the scan
+RECORDED = ("stablelm_3b", "granite_moe_3b_a800m", "falcon_mamba_7b")
+ANALYSIS = {}
+
+
+def analysis_gate(card) -> float:
+    """``python -m repro_torch.analysis --check-baseline`` on this
+    checkout, in a subprocess; fails on a new finding.  Returns its
+    seconds."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                           "--check-baseline"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    dt = time.perf_counter() - t0
+    print(f"analysis: python -m repro_torch.analysis --check-baseline: rc "
+          f"{proc.returncode}, {proc.stdout.strip().splitlines()[-1:]} "
+          f"({dt:.1f} s) [{card}]")
+    if proc.returncode != 0:
+        raise AssertionError(f"analysis gate failed:\n{proc.stdout}\n"
+                             f"{proc.stderr}")
+    return dt
+
+
+def analysis_launches(recorder, card) -> float:
+    """Every launch recorded during the RECORDED serving phases, checked:
+    arity and kinds against the extern "C" lists (KC001), tiles within
+    the kernels' limits (KC002), scalars equal to the launch-args
+    functions at the recorded shapes and the model's geometry (KC003),
+    launched tiles equal to the declared ones (GD002) and to the pinned
+    contract.  Returns its seconds."""
+    from repro_torch.analysis import baseline
+    from repro_torch.analysis import granularity_drift as gd
+    from repro_torch.analysis import kernel_contracts as kc
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    records = recorder.records()
+    findings = kc.check_recorded(records, {a: get_config(a)
+                                           for a in RECORDED})
+    contract = baseline.load_baseline(
+        baseline.BASELINE_PATH)["granularity_contract"]
+    launched = gd.launched_tiles(records)
+    findings += gd.check_drift(contract, launched=launched)
+    distinct = kc.distinct_configurations(records)
+    for arch in RECORDED:
+        mine = [r for r in records if r.label == arch]
+        by_entry = kc.distinct_configurations(mine)
+        print(f"analysis: {arch}: {sum(r.count for r in mine)} launches "
+              "recorded, distinct launch configurations "
+              + ", ".join(f"{e} {n}" for e, n in by_entry.items() if n)
+              + f" [{card}]")
+    print(f"analysis: distinct launch configurations per entry point "
+          f"{distinct}; launched tiles "
+          f"{ {k: sorted(v) for k, v in sorted(launched.items())} }, "
+          f"pinned {contract} [{card}]")
+    for f in findings:
+        print(f"  {f.render()}")
+    if findings:
+        raise AssertionError(f"analysis: {len(findings)} finding(s) in "
+                             "the recorded launches")
+    missing = [e for e, n in distinct.items() if not n]
+    off = {k: sorted(launched.get(k, ())) for k in contract
+           if launched.get(k) != {contract[k]}}
+    if missing or off:
+        raise AssertionError(f"analysis: entry points never launched "
+                             f"{missing}; tiles off the contract {off}")
+    ANALYSIS.update(distinct)
+    return time.perf_counter() - t0
+
+
 # run-name prefix of a model's serving runs in the kernels line (the first
 # word of the arch id, where that is unique)
 RUN_PREFIX = {"phi3_medium_14b": "phi3medium",
@@ -3245,7 +3333,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
-    # 4. serving
+    # 4. analysis: the static gate now, the recorded launches after the
+    # RECORDED serving phases
+    from repro_torch.analysis.kernel_contracts import LaunchRecorder
+    t_analysis = analysis_gate(card)
+    recorder = LaunchRecorder()
+
+    # 5. serving
     from repro_torch.serving import DecodeEngine, PagedKVConfig, ServingLoop
     from repro_torch.serving import diffusion as diff_mod
     mods = (DecodeEngine, PagedKVConfig, ServingLoop, ops, moe_ops, moe,
@@ -3275,15 +3369,21 @@ def main() -> int:
         t0 = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         prefix = RUN_PREFIX.get(arch, arch.split("_")[0])
-        for run, launches in serve(mods, arch, card, rtol).items():
-            runs[f"{prefix}_{run}"] = launches
+        recorder.label = arch
+        with recorder if arch in RECORDED else contextlib.nullcontext():
+            for run, launches in serve(mods, arch, card, rtol).items():
+                runs[f"{prefix}_{run}"] = launches
         MEMORY[arch] = torch.cuda.max_memory_allocated() / 1e9
         gc.collect()
         torch.cuda.empty_cache()
         print(f"phase {arch}: {time.perf_counter() - t0:.1f} s, device "
               f"memory peak {MEMORY[arch]:.2f} GB [{card}]")
+        if arch == RECORDED[-1]:
+            t_analysis += analysis_launches(recorder, card)
+            print(f"phase analysis: {t_analysis:.1f} s (the gate and the "
+                  f"launch checks) [{card}]")
 
-    # 5. the pinned trace replay, then calibrated serving, through the CLI
+    # 6. the pinned trace replay, then calibrated serving, through the CLI
     fns = {"dense": ops.decode_attention_ragged,
            "paged": ops.decode_attention_paged,
            "moe": moe_ops.grouped_ffn_padded,
@@ -3301,7 +3401,7 @@ def main() -> int:
     report_card(card)
     print_summary(card)
 
-    # 6. training: no kernel on its path; the counts must stay 0
+    # 7. training: no kernel on its path; the counts must stay 0
     t0 = time.perf_counter()
     for fn in fns.values():
         fn.launches = 0
@@ -3320,7 +3420,7 @@ def main() -> int:
     print(f"phase train: {time.perf_counter() - t0:.1f} s, launches "
           f"{runs['train']} [{card}]")
 
-    # 7. report
+    # 8. report
     src = "src/repro_torch/csrc/decode_attention.cu"
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3341,7 +3441,8 @@ def main() -> int:
             **{f"{RUN_PREFIX.get(arch, arch.split('_')[0])}_n{n}":
                {key: t[n][mode][key] for key in keys}
                for arch, t in times_new.items() for n in (1, 16)},
-            "launch_floor_ms": floor})
+            "launch_floor_ms": floor,
+            "launch_configurations": ANALYSIS[f"decode_attention_{mode}"]})
     r = moe_times["decode_balanced"]
     kernels.append({
         "name": "moe_ffn", "route": "cuda",
@@ -3365,7 +3466,8 @@ def main() -> int:
         "mixtral_prefill_T256": {key: mixtral_times["prefill_router"][key]
                                  for key in keys},
         "staircase_ms": {t: ms for t, (ms, _, _) in
-                         moe_times["staircase"].items()}})
+                         moe_times["staircase"].items()},
+        "launch_configurations": ANALYSIS["moe_ffn"]})
     kernels.append({
         "name": "mamba_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/mamba_scan.cu",
@@ -3376,7 +3478,8 @@ def main() -> int:
         **{key: scan_times["decode"][key] for key in keys},
         "prefill": {key: scan_times["prefill"][key] for key in keys},
         "staircase_ms": {n: ms for n, (ms, _) in
-                         scan_times["staircase"].items()}})
+                         scan_times["staircase"].items()},
+        "launch_configurations": ANALYSIS["mamba_scan"]})
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
           "time")

@@ -79,7 +79,15 @@ class BinaryShards:
 
 
 def make_pipeline(cfg: DataConfig, process_index: int = 0,
-                  num_processes: int = 1):
+                  num_processes: int = 1, start: int = 0):
+    """The stream from its seed, advanced past its first ``start``
+    batches (drawn on the host and dropped), so that batch ``start`` comes
+    next: a run resumed at step ``start`` trains on the batches an
+    uninterrupted run would."""
     if cfg.path is None:
-        return iter(SyntheticLM(cfg))
-    return iter(BinaryShards(cfg, process_index, num_processes))
+        stream = iter(SyntheticLM(cfg))
+    else:
+        stream = iter(BinaryShards(cfg, process_index, num_processes))
+    for _ in range(start):
+        next(stream)
+    return stream

@@ -8,8 +8,10 @@ Three pieces the launchers compose:
   - ``run_with_restarts``: drive a step function with
                           restore-from-checkpoint recovery on failure.
 
-Framework-free: a copy of the reference's ``dist/elastic.py``.  The
-launcher (``launch/train.py``) runs one card, whose mesh is (1, 1).
+Framework-free: a copy of the reference's ``dist/elastic.py``, plus
+``UpdateInterrupted``, which ``run_with_restarts`` rolls back instead of
+retrying in place.  The launcher (``launch/train.py``) runs one card,
+whose mesh is (1, 1).
 """
 from __future__ import annotations
 
@@ -64,6 +66,14 @@ class StepWatchdog:
         return self.misses >= self.max_misses
 
 
+class UpdateInterrupted(RuntimeError):
+    """A step failed after its update began to change the state in place
+    (the port's AdamW writes leaf by leaf; the loss readback and the
+    checkpoint snapshot follow the update).  Running the step again would
+    apply the update on top of itself, so ``run_with_restarts`` never
+    retries it in place: it rolls back."""
+
+
 def run_with_restarts(step_fn: Callable[[int], None], start: int,
                       total: int, restore_fn: Callable[[], int], *,
                       retry_transient: bool = True,
@@ -72,9 +82,10 @@ def run_with_restarts(step_fn: Callable[[int], None], start: int,
     restore-and-resume recovery.
 
     On an exception the step is optionally retried once in place
-    (``retry_transient`` — covers flaky I/O without paying a rollback);
-    if it fails again, ``restore_fn()`` rolls state back to the last
-    checkpoint and returns the step to resume from.  More than
+    (``retry_transient`` — covers flaky I/O without paying a rollback),
+    unless it is an ``UpdateInterrupted``; if it fails again (or was
+    interrupted mid-update), ``restore_fn()`` rolls state back to the
+    last checkpoint and returns the step to resume from.  More than
     ``max_restarts`` rollbacks re-raises: the failure is deterministic
     and restarting cannot help.
     """
@@ -83,8 +94,8 @@ def run_with_restarts(step_fn: Callable[[int], None], start: int,
     while step < total:
         try:
             step_fn(step)
-        except Exception:
-            if retry_transient:
+        except Exception as exc:
+            if retry_transient and not isinstance(exc, UpdateInterrupted):
                 try:
                     step_fn(step)
                     step += 1

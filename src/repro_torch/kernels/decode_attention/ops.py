@@ -12,8 +12,12 @@ bounds it) or raise; only a tensor on the CPU takes the plain version.
 
 The q tile is ``select_q_block(n, dh)`` of ``core.granularity`` — the
 M_attn the NFP predictor reads — and the kv tile is ``K_BLOCK`` for the
-dense cache and one page for the pool.  The kernel pads the last q tile
-logically: rows past ``n`` are skipped, so no padded copy of q exists.
+dense cache and one page for the pool.  ``dense_launch_args`` /
+``paged_launch_args`` give a launch's scalar arguments as pure functions
+of the shapes: each wrapper passes exactly their tuple to the entry
+point, so ``repro_torch.analysis`` checks the tiles on any host.  The
+kernel pads the last q tile logically: rows past ``n`` are skipped, so no
+padded copy of q exists.
 
 ``slack_report`` models one forward's physical work in numpy (useful vs
 padded query rows, executed vs grid kv tiles under the kernel's per-row
@@ -254,6 +258,30 @@ def _device_lens(cache_lens: Lens, b: int, q: Tensor) -> Tensor:
     return lens
 
 
+def dense_launch_args(q_shape, k_shape, window: Optional[int]) -> tuple:
+    """The scalar arguments of one ``decode_attention_dense`` launch, in
+    the entry point's order, from q's (b, n, h, dh) and the cache's (b, s,
+    kv, dh) shapes: (b, n, h, kv, dh, s_max, q_block, k_block, window (-1
+    for none), scale)."""
+    b, n, h, dh = (int(x) for x in q_shape)
+    s, kv = int(k_shape[1]), int(k_shape[2])
+    return (b, n, h, kv, dh, s, select_q_block(n, dh), K_BLOCK,
+            -1 if window is None else int(window), 1.0 / (dh ** 0.5))
+
+
+def paged_launch_args(q_shape, pool_shape, tables_shape,
+                      window: Optional[int]) -> tuple:
+    """The scalar arguments of one ``decode_attention_paged`` launch, in
+    the entry point's order, from q's (b, n, h, dh), the pool's (n_phys,
+    bs, kv, dh) and the block tables' (b, max_blocks) shapes: (b, n, h,
+    kv, dh, block_size, max_blocks, q_block, window (-1 for none),
+    scale)."""
+    b, n, h, dh = (int(x) for x in q_shape)
+    bs, kv = int(pool_shape[1]), int(pool_shape[2])
+    return (b, n, h, kv, dh, bs, int(tables_shape[1]), select_q_block(n, dh),
+            -1 if window is None else int(window), 1.0 / (dh ** 0.5))
+
+
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
@@ -275,15 +303,12 @@ def decode_attention_ragged(q: Tensor, k_cache: Tensor, v_cache: Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention path for {q.device}")
     _check(q, k_cache, v_cache, window, K_BLOCK)
-    b, n, h, dh = q.shape
-    s, kv = k_cache.shape[1], k_cache.shape[2]
-    lens = _device_lens(cache_lens, b, q)
+    lens = _device_lens(cache_lens, q.shape[0], q)
     o = torch.empty_like(q)
     err = _kernels().decode_attention_dense(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        lens.data_ptr(), b, n, h, kv, dh, s, select_q_block(n, dh), K_BLOCK,
-        -1 if window is None else window, 1.0 / (dh ** 0.5), _ptr(tiles),
-        _stream(q))
+        lens.data_ptr(), *dense_launch_args(q.shape, k_cache.shape, window),
+        _ptr(tiles), _stream(q))
     if err:
         raise RuntimeError(f"decode_attention_dense launch failed: CUDA "
                            f"error {err}")
@@ -308,10 +333,8 @@ def decode_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                                           block_tables, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention path for {q.device}")
-    bs = k_pool.shape[1]
-    _check(q, k_pool, v_pool, window, bs)
-    b, n, h, dh = q.shape
-    kv = k_pool.shape[2]
+    _check(q, k_pool, v_pool, window, k_pool.shape[1])
+    b = q.shape[0]
     if (block_tables.dtype != torch.int32 or block_tables.device != q.device
             or not block_tables.is_contiguous()
             or block_tables.shape[0] != b):
@@ -321,10 +344,9 @@ def decode_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     o = torch.empty_like(q)
     err = _kernels().decode_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), o.data_ptr(),
-        lens.data_ptr(), block_tables.data_ptr(), b, n, h, kv, dh, bs,
-        block_tables.shape[1], select_q_block(n, dh),
-        -1 if window is None else window,
-        1.0 / (dh ** 0.5), _ptr(tiles), _stream(q))
+        lens.data_ptr(), block_tables.data_ptr(),
+        *paged_launch_args(q.shape, k_pool.shape, block_tables.shape,
+                           window), _ptr(tiles), _stream(q))
     if err:
         raise RuntimeError(f"decode_attention_paged launch failed: CUDA "
                            f"error {err}")

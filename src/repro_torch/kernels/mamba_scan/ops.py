@@ -129,6 +129,20 @@ def _check(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor, a: Tensor,
         raise ValueError(f"d_state {ds} outside 1..{MAX_STATE}")
 
 
+def padded_len(s: int) -> int:
+    """Positions after padding ``s`` to the scan chunk."""
+    return round_up(s, select_scan_chunk(s))
+
+
+def launch_args(x_shape, a_shape) -> tuple:
+    """The scalar arguments of one ``mamba_scan`` launch, in the entry
+    point's order, from the padded x's (b, s_pad, di) and A's (di, ds)
+    shapes: (bsz, s_pad, di, ds).  The wrapper passes exactly this tuple,
+    so ``repro_torch.analysis`` checks the launches on any host."""
+    return (int(x_shape[0]), int(x_shape[1]), int(x_shape[2]),
+            int(a_shape[-1]))
+
+
 def selective_scan_padded(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
                           a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
     """The scan over every given position (already padded).  Returns (y
@@ -138,13 +152,13 @@ def selective_scan_padded(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no selective-scan path for {x.device}")
     _check(x, dt, b_in, c_in, a, h0)
-    bsz, s_pad, di = x.shape
     y = torch.empty_like(x)
     h = torch.empty_like(h0)
     err = _kernels().mamba_scan(
         x.data_ptr(), dt.data_ptr(), b_in.data_ptr(), c_in.data_ptr(),
-        a.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(), bsz, s_pad,
-        di, a.shape[-1], torch.cuda.current_stream(x.device).cuda_stream)
+        a.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+        *launch_args(x.shape, a.shape),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"mamba_scan launch failed: CUDA error {err}")
     selective_scan_padded.launches += 1
@@ -165,7 +179,7 @@ def selective_scan(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
     (b, s, di), h_final): the state after the s REAL positions (padded
     steps are identities)."""
     s = x.shape[1]
-    s_pad = round_up(s, select_scan_chunk(s))
+    s_pad = padded_len(s)
     y, h = selective_scan_padded(*(pad_positions(t, s_pad)
                                    for t in (x, dt, b_in, c_in)),
                                  a.contiguous(), h0.contiguous())

@@ -60,6 +60,24 @@ def check_f_tile(f: int) -> None:
 # block alignment (moe_align_block_size)
 # ---------------------------------------------------------------------------
 
+def padded_rows(m: int, n_experts: int, token_block: int) -> int:
+    """The static bound on the padded rows of ``m`` routed rows over
+    ``n_experts`` groups, each padded to ``token_block``: m + E·(tb − 1)
+    rounded up to a block."""
+    return round_up(m + n_experts * (token_block - 1), token_block)
+
+
+def launch_args(x_shape, w_up_shape, token_block: int, gated: bool
+                ) -> tuple:
+    """The scalar arguments of one ``moe_ffn`` launch, in the entry
+    point's order, from the padded rows' (m_pad, d) and the up weights'
+    (E, d, f) shapes: (m_pad, d, f, token_block, gated).  The wrapper
+    passes exactly this tuple, so ``repro_torch.analysis`` checks the
+    tiles on any host."""
+    return (int(x_shape[0]), int(x_shape[1]), int(w_up_shape[-1]),
+            int(token_block), int(gated))
+
+
 def _exclusive_cumsum(x: Tensor) -> Tensor:
     return torch.cumsum(x, 0, dtype=torch.int32) - x
 
@@ -73,7 +91,7 @@ def align_block_size(expert_of_sorted: Tensor, group_sizes: Tensor,
     slot_of_sorted maps each sorted row to its padded slot; blocks past
     the padded total are invalid and name the last expert."""
     m = expert_of_sorted.shape[0]
-    m_pad_max = round_up(m + n_experts * (token_block - 1), token_block)
+    m_pad_max = padded_rows(m, n_experts, token_block)
     n_blocks = m_pad_max // token_block
     dev = group_sizes.device
     gs = group_sizes.to(torch.int32)
@@ -193,8 +211,7 @@ def grouped_ffn_padded(x_padded: Tensor, w_gate: Optional[Tensor],
         raise ValueError(f"no MoE FFN path for {x_padded.device}")
     _check(x_padded, (w_gate, w_up, w_down), block_expert, block_valid,
            token_block)
-    m_pad, d = x_padded.shape
-    f = w_up.shape[-1]
+    m_pad, f = x_padded.shape[0], w_up.shape[-1]
     # h between the launches: the bf16 hi and lo planes of split_h
     h = torch.empty((2, m_pad, f), dtype=torch.bfloat16,
                     device=x_padded.device)
@@ -202,8 +219,9 @@ def grouped_ffn_padded(x_padded: Tensor, w_gate: Optional[Tensor],
     err = _kernels().moe_ffn(
         x_padded.data_ptr(), None if w_gate is None else w_gate.data_ptr(),
         w_up.data_ptr(), w_down.data_ptr(), block_expert.data_ptr(),
-        block_valid.data_ptr(), h.data_ptr(), out.data_ptr(), m_pad, d, f,
-        token_block, int(w_gate is not None),
+        block_valid.data_ptr(), h.data_ptr(), out.data_ptr(),
+        *launch_args(x_padded.shape, w_up.shape, token_block,
+                     w_gate is not None),
         None if blocks is None else blocks.data_ptr(),
         torch.cuda.current_stream(x_padded.device).cuda_stream)
     if err:

@@ -13,7 +13,13 @@ stream (seed 0) or ``--data-path``'s binary shards.  Every ``--ckpt-every``
 steps the state (params and AdamW state) is written in the background;
 a run on a directory that holds a committed checkpoint resumes from it.
 A checkpoint is labelled with the number of optimizer steps it holds
-(the AdamW state's ``step``), so a resumed run repeats none.
+(the AdamW state's ``step``), so a resumed run repeats none, and the batch
+stream is rebuilt at the restored step (at resume and after every
+rollback), so it skips none either: a resumed run trains on the batches
+an uninterrupted run would.  A failure while a batch is fetched is
+retried in place; once the update has begun (it writes the state in
+place, then the loss is read and the checkpoint snapshotted) a failure
+rolls back to the last checkpoint instead.
 
 The reference's multi-host flags (``--coordinator``, ``--sharding-policy``)
 wait for the port's ``dist`` slice: this launcher runs one device.
@@ -29,8 +35,8 @@ from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.data import DataConfig, make_pipeline
-from repro_torch.dist.elastic import (StepWatchdog, elastic_mesh,
-                                      run_with_restarts)
+from repro_torch.dist.elastic import (StepWatchdog, UpdateInterrupted,
+                                      elastic_mesh, run_with_restarts)
 from repro_torch.models import init_model
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 
@@ -72,9 +78,9 @@ def train(args) -> dict:
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
     step_fn = make_train_step(cfg, opt_cfg, n_micro=args.n_micro)
-    data = make_pipeline(
-        DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
-                   global_batch=args.global_batch, path=args.data_path))
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
+                          global_batch=args.global_batch,
+                          path=args.data_path)
     ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3)
     watchdog = StepWatchdog(deadline_s=600.0)
 
@@ -84,28 +90,36 @@ def train(args) -> dict:
         state, meta = restore(args.ckpt_dir, state, device=device)
         start = int(meta.get("step", 0))
         print(f"resumed at step {start}")
+    stream = {"data": make_pipeline(data_cfg, start=start)}
     losses = {}
 
     def one_step(step: int) -> None:
         t0 = time.time()
         batch = {k: torch.as_tensor(v, device=device)
-                 for k, v in next(data).items()}
-        state["params"], state["opt"], metrics = step_fn(
-            state["params"], state["opt"], batch)
-        losses[step] = metrics["loss"]
-        dt = time.time() - t0
-        watchdog.observe(dt)
-        if step % 10 == 0:
-            print(f"step {step:5d}  loss={float(metrics['loss']):.4f}  "
-                  f"lr={float(metrics['lr']):.2e}  {dt:.2f}s")
-        if (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, state, {"step": step + 1})
+                 for k, v in next(stream["data"]).items()}
+        try:
+            state["params"], state["opt"], metrics = step_fn(
+                state["params"], state["opt"], batch)
+            losses[step] = metrics["loss"]
+            dt = time.time() - t0
+            watchdog.observe(dt)
+            if step % 10 == 0:
+                print(f"step {step:5d}  loss={float(metrics['loss']):.4f}  "
+                      f"lr={float(metrics['lr']):.2e}  {dt:.2f}s")
+            if (step + 1) % args.ckpt_every == 0:
+                ckpt.save(step + 1, state, {"step": step + 1})
+        except Exception as exc:
+            raise UpdateInterrupted(f"step {step} failed after its update "
+                                    "began") from exc
 
     def restore_fn() -> int:
         ckpt.wait()
         restored, meta = restore(args.ckpt_dir, state, device=device)
         state.update(restored)
-        return int(meta.get("step", 0))
+        step = int(meta.get("step", 0))
+        stream["data"] = make_pipeline(data_cfg, start=step)
+        print(f"rolled back to step {step}")
+        return step
 
     run_with_restarts(one_step, start, args.steps, restore_fn)
     if args.steps % args.ckpt_every:

@@ -365,21 +365,63 @@ def test_watchdog_flags_persistent_straggler():
     assert not wd.observe(0.1) and wd.observed == 4
 
 
-def test_reference_launcher_labels_checkpoints_one_step_early(tmp_path,
-                                                              monkeypatch):
+def _ref_launcher_main(ckpt_dir, mp):
+    """The reference's train launcher (tiny, 7 steps, a checkpoint every
+    5) on ``ckpt_dir``; returns the batches its stream gave, in order."""
+    import sys
+
+    import repro.launch.train as ref_train
+    real, drawn = ref_train.make_pipeline, []
+
+    def recording(*args, **kwargs):
+        for batch in real(*args, **kwargs):
+            drawn.append(batch["tokens"])
+            yield batch
+    mp.setattr(ref_train, "make_pipeline", recording)
+    mp.setattr(sys, "argv", [
+        "train", "--tiny", "--steps", "7", "--ckpt-every", "5", "--seq",
+        "16", "--global-batch", "4", "--ckpt-dir", str(ckpt_dir)])
+    ref_train.main()
+    return drawn
+
+
+@pytest.fixture(scope="module")
+def ref_launcher_run(tmp_path_factory):
+    ckpt_dir = tmp_path_factory.mktemp("ref_launcher")
+    with pytest.MonkeyPatch.context() as mp:
+        drawn = _ref_launcher_main(ckpt_dir, mp)
+    return ckpt_dir, drawn
+
+
+def test_reference_launcher_labels_checkpoints_one_step_early(
+        ref_launcher_run):
     """A fault of the reference the port does not copy: its launcher saves
     after the update of step index s under the label s
     (``launch/train.py:104-105``), so ``step_5`` holds 6 updates and a
     resume from it repeats one.  The port labels a checkpoint with the
     updates it holds (``test_torch_training.py``)."""
-    import sys
-
-    import repro.launch.train as ref_train
-    monkeypatch.setattr(sys, "argv", [
-        "train", "--tiny", "--steps", "7", "--ckpt-every", "5", "--seq",
-        "16", "--global-batch", "4", "--ckpt-dir", str(tmp_path)])
-    ref_train.main()
+    tmp_path, _ = ref_launcher_run
     for label, updates in ((5, 6), (7, 7)):
         d = tmp_path / f"step_{label:010d}"
         with np.load(d / "arrays.npz") as arrays:
             assert int(arrays["opt/step"]) == updates
+
+
+def test_reference_launcher_resumes_on_the_first_batches(ref_launcher_run,
+                                                         tmp_path,
+                                                         monkeypatch):
+    """A fault of the reference the port does not copy: a resumed run
+    builds its stream anew and skips none of the batches the checkpoint
+    consumed (``launch/train.py:78-91``).  ``step_7`` deleted, the run
+    again resumes from ``step_5`` and trains step 5 on batch 0, where the
+    uninterrupted run trained it on batch 5.  The port advances its
+    stream by the restored step (``test_torch_training.py``)."""
+    import shutil
+    src, first = ref_launcher_run
+    shutil.copytree(src, tmp_path / "ck")
+    shutil.rmtree(tmp_path / "ck" / "step_0000000007")
+    again = _ref_launcher_main(tmp_path / "ck", monkeypatch)
+    assert len(first) == 7 and len(again) == 2      # steps 5 and 6
+    np.testing.assert_array_equal(again[0], first[0])
+    np.testing.assert_array_equal(again[1], first[1])
+    assert not np.array_equal(again[0], first[5])

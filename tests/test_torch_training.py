@@ -494,3 +494,119 @@ def test_train_cli_defaults_to_the_card(tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         train(build_parser().parse_args(["--tiny", "--steps", "1",
                                          "--ckpt-dir", str(tmp_path)]))
+
+
+# ---------------------------------------------------------------------------
+# the launcher's recovery: resume and rollback in float32, bitwise
+# ---------------------------------------------------------------------------
+
+RECOVERY_ARGV = ["--device", "cpu", "--tiny", "--steps", "10",
+                 "--ckpt-every", "5", "--seq", "16", "--global-batch", "4"]
+
+
+def _f32_launcher(mp):
+    """The train launcher with float32 weights (it draws bf16 ones)."""
+    import repro_torch.launch.train as launcher
+    real = launcher.init_model
+    mp.setattr(launcher, "init_model",
+               lambda cfg, gen, device: real(cfg, gen, device,
+                                             torch.float32))
+    return launcher
+
+
+def _run(ckpt_dir):
+    return train(build_parser().parse_args(RECOVERY_ARGV
+                                           + ["--ckpt-dir", str(ckpt_dir)]))
+
+
+@pytest.fixture(scope="module")
+def uninterrupted(tmp_path_factory):
+    """Tiny stablelm_3b, float32, 10 steps, a checkpoint every 5."""
+    ckpt_dir = tmp_path_factory.mktemp("uninterrupted")
+    with pytest.MonkeyPatch.context() as mp:
+        _f32_launcher(mp)
+        out = _run(ckpt_dir)
+    assert out["start"] == 0 and len(out["losses"]) == 10
+    return ckpt_dir, out
+
+
+@pytest.fixture
+def f32_launcher(monkeypatch):
+    return _f32_launcher(monkeypatch)
+
+
+def _assert_bitwise(got, want):
+    for (path, a), b in zip(leaves_with_paths(got), leaves(want)):
+        assert a.dtype == b.dtype == torch.float32 or a.dtype == b.dtype
+        assert torch.equal(a, b), path_key(path)
+
+
+def test_train_cli_resume_is_bitwise_the_uninterrupted_run(
+        uninterrupted, f32_launcher, tmp_path, capsys):
+    """``step_0000000010`` deleted, the run again resumes at 5 on batches
+    5-9 (the stream advanced by the restored step), so its losses and its
+    final params and AdamW state are bitwise the uninterrupted run's."""
+    import shutil
+    src, want = uninterrupted
+    shutil.copytree(src, tmp_path / "ck")
+    shutil.rmtree(tmp_path / "ck" / "step_0000000010")
+    got = _run(tmp_path / "ck")
+    assert "resumed at step 5" in capsys.readouterr().out
+    assert got["start"] == 5
+    assert got["losses"] == want["losses"][5:]
+    _assert_bitwise(got["state"], want["state"])
+
+
+def test_train_cli_rolls_back_a_failure_mid_update(uninterrupted,
+                                                   f32_launcher, tmp_path,
+                                                   monkeypatch, capsys):
+    """One failure inside step 7's AdamW update, at its second leaf (the
+    first leaf, its m / v and ``step`` already written in place): the run
+    rolls back to checkpoint 5 rather than retrying the step on top of
+    the half-applied update, rebuilds the stream at batch 5, and ends
+    bitwise equal to the uninterrupted run."""
+    from repro_torch.training import optimizer
+    _, want = uninterrupted
+    n_leaves = len(leaves(want["state"]["params"]))
+    real, calls = optimizer._decay_mask, []
+
+    def failing_mask(key):
+        calls.append(key)
+        if len(calls) == 7 * n_leaves + 2:
+            raise RuntimeError("injected failure mid-update")
+        return real(key)
+    monkeypatch.setattr(optimizer, "_decay_mask", failing_mask)
+    got = _run(tmp_path)
+    assert "rolled back to step 5" in capsys.readouterr().out
+    # 7 updates and two leaves, then steps 5-9 again
+    assert len(calls) == 7 * n_leaves + 2 + 5 * n_leaves
+    assert got["losses"] == want["losses"]
+    _assert_bitwise(got["state"], want["state"])
+
+
+def test_train_cli_retries_a_batch_fetch_in_place(uninterrupted,
+                                                  f32_launcher, tmp_path,
+                                                  monkeypatch, capsys):
+    """A failure while step 3's batch is fetched (before the update
+    begins) is retried in place, with no rollback: the run ends bitwise
+    equal to the uninterrupted one."""
+    _, want = uninterrupted
+    real, fetches = f32_launcher.make_pipeline, []
+
+    class Flaky:
+        def __init__(self, stream):
+            self.stream = stream
+
+        def __next__(self):
+            fetches.append(1)
+            if len(fetches) == 4:
+                raise OSError("injected flaky read")
+            return next(self.stream)
+
+    monkeypatch.setattr(f32_launcher, "make_pipeline",
+                        lambda cfg, start=0: Flaky(real(cfg, start=start)))
+    got = _run(tmp_path)
+    assert "rolled back" not in capsys.readouterr().out
+    assert len(fetches) == 11
+    assert got["losses"] == want["losses"]
+    _assert_bitwise(got["state"], want["state"])
