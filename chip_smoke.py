@@ -216,7 +216,30 @@ Phases, in order; any failure exits non-zero:
                 lr 1e-2 (last loss < 0.85 x the first), then --steps 60 on
                 the same directory (resumes at 50), and the final
                 checkpoint restored bitwise equal to the state in memory.
-  8. report   — one JSON line of kernels (launches summed over every run
+  8. dist     — sharded execution on a one-rank NCCL group
+                (``tcp://127.0.0.1:<free port>``).  (a) ``dist.ep_moe_ffn``
+                (dispatch, batched expert products, combine, two
+                all_to_all_single exchanges) at granite_moe_3b_a800m's FFN
+                (E 40, top-8, d 1536, f 512) and mixtral_8x22b's (E 8,
+                top-2, d 6144, f 16384), swiglu, bf16, T = 4 and 256, at
+                capacity factor E/k (no drops), normwise: against the plain
+                ``moe_ffn`` (h rounded to bf16, as ep's) within 2^-8 and
+                against ``moe_ffn(..., use_kernel=True)`` (the CUDA MoE
+                kernel, h in f32) within 2^-7; at capacity factor 0.25:
+                finite, its dropped pairs equal to a host recount; both
+                paths timed.  (b) the dry run's ``decode_cell`` for
+                full-size stablelm_3b at b 8, s 4096 on a 1 x 1 mesh: its
+                args materialised on the card raise the caching allocator's
+                requested bytes by exactly the cell's per-device
+                ``argument_bytes``, and ``torch.cuda.memory_allocated()`` by
+                them within its rounding (512 bytes, and at most 1 MiB a
+                leaf left unsplit in a large block).  (c) the
+                sharded train step (``dist.sharded_train``, policy fsdp)
+                against the unsharded ``train_step``: full-size
+                stablelm_3b, 3 steps at 8 x 256, n_micro 2, remat True,
+                the same seed, batches and AdamWConfig: losses, final
+                params and f32 master bitwise equal; step times printed.
+  9. report   — one JSON line of kernels (launches summed over every run
                 above), the command time, the card line, and the final
                 {"ok": true, ...} line.
 """
@@ -3114,6 +3137,256 @@ def train_cli(card) -> None:
         raise AssertionError("cli train: the final checkpoint differs")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: dist — expert parallelism, the dry run's memory pass and the
+# sharded train step on a one-rank NCCL group
+# ---------------------------------------------------------------------------
+
+DIST_EP = (("granite_moe_3b_a800m", GRANITE_MOE),
+           ("mixtral_8x22b", MIXTRAL_MOE))
+DIST_T = (4, 256)
+DIST_DROP_CF = 0.25
+# ep_moe_ffn rounds h and each pair's output to bf16, as the reference's
+# does (the kernel keeps h in f32), and its batched products sum in
+# another order than the plain moe_ffn's per-expert ones; the weighted
+# combine of k such pairs can cancel, so an elementwise bound on the
+# combined row does not hold (one bf16 ulp of a pair output at mixtral's
+# width is 256).  Held normwise: against the plain moe_ffn (the same
+# roundings) within one bf16 rounding, against the kernel path within two
+DIST_EP_PLAIN_RTOL = 2.0 ** -8
+DIST_EP_KERNEL_RTOL = 2 * 2.0 ** -8
+
+
+def _normwise(got, want) -> float:
+    return float((got.double() - want.double()).norm()
+                 / want.double().norm())
+DIST_DECODE = ("stablelm_3b", 8, 4096)      # arch, batch, cache length
+DIST_TRAIN_STEPS = 3
+DIST = {}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def dropped_on_host(idx, e, cap) -> int:
+    """Pairs past their expert's capacity, counted in pair order on the
+    host: the drops ``ep_moe_ffn`` makes."""
+    counts = np.bincount(idx.reshape(-1), minlength=e)
+    return int(np.maximum(counts - cap, 0).sum())
+
+
+def dist_ep(moe, card) -> None:
+    """(a) ``ep_moe_ffn`` against the CUDA MoE kernel path at granite's and
+    mixtral's widths."""
+    from repro_torch.core.arch import FFNSpec
+    from repro_torch.dist.ep_moe import capacity, ep_moe_ffn, local_experts
+    from repro_torch.kernels.moe_ffn import ops as moe_ops
+    counter = moe_ops.grouped_ffn_padded
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    for arch, (e, k, d, f) in DIST_EP:
+        spec = FFNSpec(kind="moe", d_ff=f, activation="swiglu", n_experts=e,
+                       top_k=k)
+        g = torch.Generator(device="cuda").manual_seed(20)
+        params = {**moe_weights(e, d, f, seed=21),
+                  "router": torch.randn((d, e), generator=g,
+                                        device="cuda") * 0.02}
+        local = local_experts(params, spec, 0, 1)
+        for t in DIST_T:
+            x = torch.randn((t, d), generator=g, device="cuda").to(
+                torch.bfloat16)
+            stats = {}
+            out = ep_moe_ffn(local, spec, x, capacity_factor=e / k,
+                             stats=stats)
+            kernel, _ = moe.moe_ffn(params, spec, x, use_kernel=True)
+            ref, _ = moe.moe_ffn(params, spec, x)
+            diff = (out.float() - ref.float()).abs()
+            to_plain = _normwise(out, ref)
+            to_kernel = _normwise(out, kernel)
+            if (not torch.isfinite(out).all()
+                    or to_plain > DIST_EP_PLAIN_RTOL
+                    or to_kernel > DIST_EP_KERNEL_RTOL
+                    or int(stats["dropped"])):
+                raise AssertionError(
+                    f"dist ep {arch} T={t}: normwise against the plain "
+                    f"moe_ffn {to_plain:.4g}, against the kernel path "
+                    f"{to_kernel:.4g}, dropped {int(stats['dropped'])}")
+            drop_stats = {}
+            dropped = ep_moe_ffn(local, spec, x, capacity_factor=DIST_DROP_CF,
+                                 stats=drop_stats)
+            cap = capacity(DIST_DROP_CF, t, k, e)
+            _, idx, _ = moe.route_topk(params["router"], x, k)
+            want = dropped_on_host(idx.cpu().numpy(), e, cap)
+            if (not torch.isfinite(dropped).all()
+                    or int(drop_stats["dropped"]) != want):
+                raise AssertionError(
+                    f"dist ep {arch} T={t} cf {DIST_DROP_CF}: dropped "
+                    f"{int(drop_stats['dropped'])}, host recount {want}")
+            ep_ms = time_ms(lambda: ep_moe_ffn(local, spec, x,
+                                               capacity_factor=e / k),
+                            flush)
+            # the timing's launches are not the path's: taken back out
+            saved = counter.launches
+            kernel_ms = time_ms(lambda: moe.moe_ffn(
+                params, spec, x, use_kernel=True), flush)
+            counter.launches = saved
+            DIST[f"ep {arch} T={t}"] = {"ep_ms": ep_ms,
+                                       "moe_ffn_kernel_ms": kernel_ms,
+                                       "normwise_err_plain": to_plain,
+                                       "normwise_err_kernel": to_kernel,
+                                       "max_abs_err_plain": float(diff.max())}
+            print(f"  dist ep {arch} (E {e}, top-{k}, d {d}, f {f}) T={t}: "
+                  f"normwise err against the plain moe_ffn {to_plain:.4g} "
+                  f"(limit {DIST_EP_PLAIN_RTOL:.4g}; max abs "
+                  f"{float(diff.max()):.4g} of rows' rms "
+                  f"{float(ref.float().pow(2).mean().sqrt()):.4g}), against "
+                  f"moe_ffn(use_kernel=True) {to_kernel:.4g} (limit "
+                  f"{DIST_EP_KERNEL_RTOL:.4g}); at capacity "
+                  f"factor {DIST_DROP_CF} (capacity {cap}) {want} of {t * k} "
+                  f"pairs dropped, as the host recount; ep_moe_ffn "
+                  f"{ep_ms:.4f} ms, moe_ffn with the kernel {kernel_ms:.4f} "
+                  f"ms [{card}]")
+        del params, local
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dist_memory(mesh, card) -> None:
+    """(b) the dry run's decode cell, materialised on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.arch import ShapeSpec
+    from repro_torch.core.tree import leaves
+    from repro_torch.dist.sharding import shard_bytes
+    from repro_torch.launch.specs import build_cell, materialize
+    arch, b, s = DIST_DECODE
+    shape = ShapeSpec(f"decode_{s}", s, b, "decode")
+    _, args, in_ps, _ = build_cell(get_config(arch), shape, mesh)
+    want = shard_bytes(args, in_ps, mesh)
+    n_leaves = len(leaves(args))
+    gc.collect()
+    torch.cuda.synchronize()
+    requested = "requested_bytes.all.current"
+    before = (torch.cuda.memory_allocated(),
+              torch.cuda.memory_stats()[requested])
+    real = materialize(args, in_ps, mesh, "cuda")
+    torch.cuda.synchronize()
+    rise = torch.cuda.memory_allocated() - before[0]
+    asked = torch.cuda.memory_stats()[requested] - before[1]
+    DIST["memory"] = {"argument_bytes": want, "requested_rise": asked,
+                      "allocated_rise": rise, "leaves": n_leaves}
+    print(f"  dist memory: decode_cell {arch} b {b} s {s} on a 1 x 1 mesh: "
+          f"argument_bytes {want} ({want / 1e9:.3f} GB, {n_leaves} leaves); "
+          f"the allocator's requested bytes rose {asked}, memory_allocated "
+          f"{rise} (+{rise - want}) [{card}]")
+    # the caching allocator rounds a block to 512 bytes, and hands a large
+    # block out whole when what it would split off is 1 MiB or less
+    if asked != want or not 0 <= rise - want <= n_leaves * (2 ** 20 + 512):
+        raise AssertionError(f"dist memory: requested {asked}, allocated "
+                             f"{rise}, the cell's argument_bytes {want}")
+    del real
+
+
+def dist_train(mesh, card) -> None:
+    """(c) the sharded train step against the unsharded one at world 1."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import leaves
+    from repro_torch.data import DataConfig, make_pipeline
+    from repro_torch.dist.sharded_train import (gather,
+                                                make_sharded_train_step,
+                                                state_placements)
+    from repro_torch.dist.sharding import shard_tree
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, init_opt_state,
+                                      make_train_step)
+    cfg = get_config("stablelm_3b")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1,
+                          total_steps=DIST_TRAIN_STEPS)
+    data = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    batches = [{"tokens": torch.as_tensor(next(data)["tokens"],
+                                          device="cuda")}
+               for _ in range(DIST_TRAIN_STEPS)]
+    results = {}
+    for label in ("unsharded", "sharded fsdp"):
+        torch.cuda.reset_peak_memory_stats()
+        params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                            "cuda")
+        state = {"params": params, "opt": init_opt_state(params)}
+        del params
+        if label == "unsharded":
+            step = make_train_step(cfg, opt_cfg, n_micro=TRAIN_N_MICRO,
+                                   remat=True)
+        else:
+            placements = state_placements(state, mesh, "fsdp")
+            state = shard_tree(state, placements, mesh)
+            step = make_sharded_train_step(
+                cfg, opt_cfg, mesh, placements, TRAIN_BATCH, "fsdp",
+                n_micro=TRAIN_N_MICRO, remat=True)
+        losses, times = [], []
+        for b in batches:
+            (state["params"], state["opt"], m), dt = _timed(
+                lambda: step(state["params"], state["opt"], b))
+            losses.append(m["loss"])
+            times.append(dt)
+        full = gather(state) if label != "unsharded" else state
+        # the params and the f32 master: the unsharded run's kept on the
+        # host (16.8 GB), the sharded run's compared leaf by leaf
+        kept = leaves(full["params"]) + leaves(full["opt"]["master"])
+        results[label] = {
+            "losses": torch.stack(losses).cpu(),
+            "step_ms": [1e3 * t for t in times],
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        if label == "unsharded":
+            host = [t.detach().to("cpu", copy=True) for t in kept]
+        else:
+            same_state = all(torch.equal(t, h.to("cuda"))
+                             for t, h in zip(kept, host))
+        del state, full, step, kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    a, b = results["unsharded"], results["sharded fsdp"]
+    same_loss = torch.equal(a["losses"], b["losses"])
+    for label, r in results.items():
+        DIST[f"train {label}"] = {"losses": r["losses"].tolist(),
+                                  "step_ms": r["step_ms"],
+                                  "peak_gb": r["peak_gb"]}
+        print(f"  dist train {label}: stablelm_3b full size, "
+              f"{DIST_TRAIN_STEPS} steps at {TRAIN_BATCH} x {TRAIN_SEQ}, "
+              f"n_micro {TRAIN_N_MICRO}, remat True: losses "
+              + ", ".join(f"{x:.6f}" for x in r["losses"].tolist())
+              + "; step ms " + ", ".join(f"{t:.1f}" for t in r["step_ms"])
+              + f"; memory peak {r['peak_gb']:.2f} GB [{card}]")
+    print(f"  dist train: sharded (fsdp, 1 x 1 mesh, one NCCL rank) against "
+          f"unsharded: losses bitwise equal {same_loss}, final params and "
+          f"f32 master ({len(host)} leaves) bitwise equal {same_state} "
+          f"[{card}]")
+    if not (same_loss and same_state):
+        raise AssertionError("dist train: the sharded steps differ from the "
+                             "unsharded ones at world 1")
+
+
+def dist_phase(moe, card) -> None:
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        dist_ep(moe, card)
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        dist_memory(mesh, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist_train(mesh, card)
+    finally:
+        dist.destroy_process_group()
+
+
 # the serving phases whose kernel launches the analysis phase records:
 # decode attention in both modes, the MoE FFN, the scan
 RECORDED = ("stablelm_3b", "granite_moe_3b_a800m", "falcon_mamba_7b")
@@ -3420,7 +3693,23 @@ def main() -> int:
     print(f"phase train: {time.perf_counter() - t0:.1f} s, launches "
           f"{runs['train']} [{card}]")
 
-    # 8. report
+    # 8. dist: the MoE kernel runs in (a)'s reference path
+    t0 = time.perf_counter()
+    for fn in fns.values():
+        fn.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_phase(moe, card)
+    runs["dist"] = {k: fn.launches for k, fn in fns.items()}
+    if not runs["dist"]["moe"]:
+        raise AssertionError(f"dist: the MoE kernel never ran "
+                             f"{runs['dist']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase dist: {time.perf_counter() - t0:.1f} s, launches "
+          f"{runs['dist']} [{card}]")
+
+    # 9. report
     src = "src/repro_torch/csrc/decode_attention.cu"
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3480,6 +3769,7 @@ def main() -> int:
         "staircase_ms": {n: ms for n, (ms, _) in
                          scan_times["staircase"].items()},
         "launch_configurations": ANALYSIS["mamba_scan"]})
+    print("dist summary: " + json.dumps(DIST))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
           "time")

@@ -13,9 +13,11 @@ the other:
     blocked on serialization;
   - keep-last-k GC.
 
-``restore`` places the leaves on one ``device`` (the reference's
-``shardings``, re-sharding onto another mesh, waits for the port's
-``dist`` slice).
+``restore`` places the leaves on one ``device``, or, with ``shardings``
+(a tree of DTensor placements) and ``mesh``, returns this rank's shards
+as DTensors on that mesh: a checkpoint written at one world size resumes
+at another (the elastic path).  Sharded states are written gathered
+full, so the format does not depend on the mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.tree import leaves_with_paths, path_key, unflatten
+from repro_torch.dist.sharding import shard_tree
 
 COMMIT = "COMMITTED"
 
@@ -118,10 +121,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
-            device: Optional[torch.device | str] = None) -> Tuple[Any, Dict]:
+            device: Optional[torch.device | str] = None,
+            shardings: Any = None, mesh: Any = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target_tree`` (the stored dtypes,
     bf16 bit for bit) on ``device``, by default each target leaf's own;
-    returns (tree, the metadata saved with it)."""
+    returns (tree, the metadata saved with it).
+
+    ``shardings``: a tree of placement lists matching ``target_tree``, on
+    the ``DeviceMesh`` ``mesh`` (``dist.sharding.placements_from_pspecs``):
+    every leaf is then this rank's shard of the stored array, a DTensor
+    (read whole, sliced locally; no communication)."""
+    if (shardings is None) != (mesh is None):
+        raise ValueError("restore: shardings and mesh go together")
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -140,4 +151,7 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
                 t = torch.from_numpy(arr)
             new_leaves.append(t.to(device if device is not None
                                    else old_leaf.device))
-    return unflatten(target_tree, new_leaves), meta["metadata"]
+    tree = unflatten(target_tree, new_leaves)
+    if shardings is not None:
+        tree = shard_tree(tree, shardings, mesh)
+    return tree, meta["metadata"]

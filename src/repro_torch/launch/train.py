@@ -1,5 +1,5 @@
 """Training launcher: data + train step + checkpoints + restart on
-failure, on one card.
+failure, on one card or sharded over a process group.
 
 On the card (the default device):
   PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_3b \
@@ -7,11 +7,28 @@ On the card (the default device):
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tiny \
       --steps 50 --ckpt-dir /tmp/ckpt
+Sharded, one process per rank (no ``torchrun`` needed):
+  RANK=r WORLD_SIZE=n PYTHONPATH=src python -m repro_torch.launch.train \
+      --coordinator host:port --sharding-policy fsdp ...
+``--coordinator`` (``host:port``, or any ``torch.distributed`` init URL
+such as ``file:///path``) or the ``RANK`` / ``WORLD_SIZE`` environment
+(then ``env://``: ``MASTER_ADDR`` / ``MASTER_PORT``) joins a process
+group, NCCL on the card (one rank per GPU, ``LOCAL_RANK``) and gloo with
+``--device cpu``; a group already initialised by the caller is used as
+it is.  The mesh is ``elastic_mesh(world size)``; each rank keeps its
+shards of the params and the AdamW state under ``--sharding-policy``
+(``dist.sharded_train``: the full params are gathered every step, each
+rank computes the gradients of its rows of the global batch, and the
+gradients are averaged over the ranks that split the batch; the model
+axis shards storage only, its compute is not tensor-parallel).  Every
+rank draws the same global batch from the stream and takes its rows, so
+a run gives the same batches at every world size.
 
 Weights are random, drawn from seed 0; batches come from the synthetic
 stream (seed 0) or ``--data-path``'s binary shards.  Every ``--ckpt-every``
-steps the state (params and AdamW state) is written in the background;
-a run on a directory that holds a committed checkpoint resumes from it.
+steps the state (params and AdamW state; gathered full when sharded, and
+written by rank 0) is written in the background; a run on a directory
+that holds a committed checkpoint resumes from it, at any world size.
 A checkpoint is labelled with the number of optimizer steps it holds
 (the AdamW state's ``step``), so a resumed run repeats none, and the batch
 stream is rebuilt at the restored step (at resume and after every
@@ -20,16 +37,15 @@ an uninterrupted run would.  A failure while a batch is fetched is
 retried in place; once the update has begun (it writes the state in
 place, then the loss is read and the checkpoint snapshotted) a failure
 rolls back to the last checkpoint instead.
-
-The reference's multi-host flags (``--coordinator``, ``--sharding-policy``)
-wait for the port's ``dist`` slice: this launcher runs one device.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import AsyncCheckpointer, latest_step, restore
 from repro_torch.configs import get_config
@@ -37,6 +53,9 @@ from repro_torch.core.device import resolve_device
 from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.dist.elastic import (StepWatchdog, UpdateInterrupted,
                                       elastic_mesh, run_with_restarts)
+from repro_torch.dist.sharded_train import (gather, make_sharded_train_step,
+                                            state_placements)
+from repro_torch.dist.sharding import shard_tree
 from repro_torch.models import init_model
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
 
@@ -58,38 +77,92 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--data-path", default=None,
                     help="binary shard dir; default synthetic")
+    ap.add_argument("--coordinator", default=None,
+                    help="host:port (or an init URL) of the process group")
+    ap.add_argument("--sharding-policy", default="auto",
+                    choices=["auto", "fsdp", "tp_only", "dp_only"])
     return ap
+
+
+def init_distributed(args, device: torch.device):
+    """(whether the run is sharded, the device): joins the process group
+    ``--coordinator`` or the environment names, unless one exists."""
+    if not dist.is_initialized():
+        if args.coordinator is None and "WORLD_SIZE" not in os.environ:
+            return False, device
+        rank = int(os.environ.get("RANK", 0))
+        world = int(os.environ.get("WORLD_SIZE", 1))
+        url = args.coordinator or "env://"
+        if "://" not in url:
+            url = f"tcp://{url}"
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method=url, rank=rank, world_size=world)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(device)
+    return True, device
 
 
 def train(args) -> dict:
     """Run ``args.steps`` optimizer steps (from the latest checkpoint in
     ``--ckpt-dir``, if any).  Returns {"start": the step resumed at,
     "losses": the loss of each step run (floats, read back once, at the
-    end), "state": {"params", "opt"} as it ends, "device"}."""
+    end), "state": {"params", "opt"} as it ends (DTensors when sharded),
+    "device", "mesh" and "placements" (None unsharded)}."""
     device = resolve_device(args.device)
+    sharded, device = init_distributed(args, device)
+    world = dist.get_world_size() if sharded else 1
+    lead = not sharded or dist.get_rank() == 0
     cfg = get_config(args.arch, reduced=args.tiny)
-    shape, axes = elastic_mesh(1)
-    print(f"mesh {dict(zip(axes, shape))}  arch {cfg.name}  "
-          f"device {device}")
+    shape, axes = elastic_mesh(world)
+    mesh = None
+    if sharded:
+        from torch.distributed.device_mesh import init_device_mesh
+        mesh = init_device_mesh(device.type, shape, mesh_dim_names=axes)
+    if lead:
+        print(f"mesh {dict(zip(axes, shape))}  arch {cfg.name}  "
+              f"device {device}"
+              + (f"  policy {args.sharding_policy}" if sharded else ""))
 
-    params = init_model(cfg, torch.Generator(device=device).manual_seed(SEED),
-                        device)
-    opt = init_opt_state(params)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_model(cfg, gen, device)
+    state = {"params": params, "opt": init_opt_state(params)}
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
-    step_fn = make_train_step(cfg, opt_cfg, n_micro=args.n_micro)
+    placements = None
+    if sharded:
+        placements = state_placements(state, mesh, args.sharding_policy)
+        state = shard_tree(state, placements, mesh)
+        del params
+        step_fn = make_sharded_train_step(
+            cfg, opt_cfg, mesh, placements, args.global_batch,
+            args.sharding_policy, n_micro=args.n_micro)
+    else:
+        step_fn = make_train_step(cfg, opt_cfg, n_micro=args.n_micro)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.global_batch,
                           path=args.data_path)
     ckpt = AsyncCheckpointer(args.ckpt_dir, keep=3)
     watchdog = StepWatchdog(deadline_s=600.0)
 
-    state = {"params": params, "opt": opt}
+    def save(step: int) -> None:
+        # a sharded state is gathered on every rank, written by rank 0
+        full = gather(state) if sharded else state
+        if lead:
+            ckpt.save(step, full, {"step": step})
+
+    def load() -> int:
+        restored, meta = restore(
+            args.ckpt_dir, state, device=device,
+            shardings=placements, mesh=mesh)
+        state.update(restored)
+        return int(meta.get("step", 0))
+
     start = 0
     if latest_step(args.ckpt_dir) is not None:
-        state, meta = restore(args.ckpt_dir, state, device=device)
-        start = int(meta.get("step", 0))
-        print(f"resumed at step {start}")
+        start = load()
+        if lead:
+            print(f"resumed at step {start}")
     stream = {"data": make_pipeline(data_cfg, start=start)}
     losses = {}
 
@@ -103,36 +176,44 @@ def train(args) -> dict:
             losses[step] = metrics["loss"]
             dt = time.time() - t0
             watchdog.observe(dt)
-            if step % 10 == 0:
+            if step % 10 == 0 and lead:
                 print(f"step {step:5d}  loss={float(metrics['loss']):.4f}  "
                       f"lr={float(metrics['lr']):.2e}  {dt:.2f}s")
             if (step + 1) % args.ckpt_every == 0:
-                ckpt.save(step + 1, state, {"step": step + 1})
+                save(step + 1)
         except Exception as exc:
             raise UpdateInterrupted(f"step {step} failed after its update "
                                     "began") from exc
 
     def restore_fn() -> int:
         ckpt.wait()
-        restored, meta = restore(args.ckpt_dir, state, device=device)
-        state.update(restored)
-        step = int(meta.get("step", 0))
+        if sharded:
+            dist.barrier()
+        step = load()
         stream["data"] = make_pipeline(data_cfg, start=step)
         print(f"rolled back to step {step}")
         return step
 
     run_with_restarts(one_step, start, args.steps, restore_fn)
     if args.steps % args.ckpt_every:
-        ckpt.save(args.steps, state, {"step": args.steps})
+        save(args.steps)
     ckpt.wait()
-    print("training complete; checkpoint committed")
+    if sharded:
+        dist.barrier()
+    if lead:
+        print("training complete; checkpoint committed")
     ordered = [losses[s] for s in sorted(losses)]
-    return {"start": start, "device": device, "state": state,
+    return {"start": start, "device": device, "state": state, "mesh": mesh,
+            "placements": placements,
             "losses": (torch.stack(ordered).tolist() if ordered else [])}
 
 
 def main() -> None:
-    train(build_parser().parse_args())
+    try:
+        train(build_parser().parse_args())
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -13,12 +13,18 @@ weighted rows to (T, k, d) and sums over k in f32: deterministic, where
 
 Controlled routing (paper App. C.3.1) goes through ``routing_override``:
 the load-balanced round-robin of Eq. 25 and the load-skewed pattern.
+
+Under ``batch_group`` (data-parallel training, each rank on its rows of a
+micro-batch) the aux loss takes its router statistics over the whole
+micro-batch, as one process computing on all of it does.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.arch import FFNSpec
@@ -26,6 +32,38 @@ from repro_torch.kernels.moe_ffn.ops import grouped_ffn
 from repro_torch.models.layers import _init
 
 Tensor = torch.Tensor
+
+# (process group, ranks) whose rows make up the micro-batch, or None
+_BATCH_GROUP: Optional[Tuple[object, int]] = None
+
+
+@contextlib.contextmanager
+def batch_group(group, size: int):
+    """Inside, the aux loss averages its router statistics over the
+    ``size`` ranks of ``group``, each holding an equal share of the
+    micro-batch's rows (a collective per MoE layer: every rank of the
+    group must run the same forward and backward).  A no-op for
+    ``group`` None."""
+    global _BATCH_GROUP
+    prev, _BATCH_GROUP = _BATCH_GROUP, (
+        None if group is None else (group, size))
+    try:
+        yield
+    finally:
+        _BATCH_GROUP = prev
+
+
+def _batch_stats(frac: Tensor, mean_p: Tensor) -> Tuple[Tensor, Tensor]:
+    """(frac, mean_p) averaged over the batch group.  The mean probability
+    keeps the gradient of this rank's own: averaged over the ranks, as
+    the trainer averages gradients, that is the gradient of the global
+    aux loss."""
+    group, size = _BATCH_GROUP
+    e = frac.shape[0]
+    both = torch.cat([frac, mean_p.detach()])
+    dist.all_reduce(both, op=dist.ReduceOp.SUM, group=group)
+    both = both / size
+    return both[:e], mean_p + (both[e:] - mean_p).detach()
 
 
 def init_moe(gen: torch.Generator, d_model: int, f: FFNSpec,
@@ -123,7 +161,10 @@ def moe_ffn(params: Dict, f: FFNSpec, x: Tensor,
         weights, top_idx, probs = route_topk(params["router"], xt, k)
         # switch-style load-balance aux loss
         frac = F.one_hot(top_idx, e).float().mean(dim=(0, 1))
-        aux = e * torch.sum(frac * probs.mean(dim=0))
+        mean_p = probs.mean(dim=0)
+        if _BATCH_GROUP is not None:
+            frac, mean_p = _batch_stats(frac, mean_p)
+        aux = e * torch.sum(frac * mean_p)
 
     # --- dispatch: sort token-expert pairs by expert ----------------------
     flat_idx = top_idx.reshape(-1).long()

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -88,13 +88,16 @@ def _decay_mask(path_key_str: str) -> bool:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params, grads, opt_state
-                 ) -> Tuple[Dict, Dict, Dict]:
+def adamw_update(cfg: AdamWConfig, params, grads, opt_state,
+                 norm: Optional[Tensor] = None) -> Tuple[Dict, Dict, Dict]:
     """One AdamW step, in place: ``params``, ``opt_state`` (master, m, v,
     step) are updated and returned with the metrics {"grad_norm", "lr"}
     (device tensors).  ``grads`` (any float dtype, read only) are cast to
-    f32 and clipped leaf by leaf."""
-    norm = global_norm(grads)
+    f32 and clipped leaf by leaf.  ``norm``: the global gradient norm to
+    clip by, by default ``global_norm(grads)`` (a sharded update passes
+    the norm of the full gradients and its shards of them)."""
+    if norm is None:
+        norm = global_norm(grads)
     scale = _clip_scale(norm, cfg.clip_norm)
     step = opt_state["step"]
     step.add_(1)

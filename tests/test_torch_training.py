@@ -610,3 +610,194 @@ def test_train_cli_retries_a_batch_fetch_in_place(uninterrupted,
     assert len(fetches) == 11
     assert got["losses"] == want["losses"]
     _assert_bitwise(got["state"], want["state"])
+
+
+# ---------------------------------------------------------------------------
+# AdamW's norm= and the sharded launcher (--coordinator, --sharding-policy)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_adamw_update_norm_defaults_to_the_grads_global_norm(dtype):
+    """``norm=`` left out is bitwise the update clipped by
+    ``global_norm(grads)`` given explicitly, and a larger norm clips
+    harder: the norm the update reports is the one given."""
+    from repro_torch.training import global_norm
+    cfg = port_config("stablelm_3b", reduced=True)
+
+    def case():
+        params = transformer.init_model(
+            cfg, torch.Generator().manual_seed(0), "cpu",
+            getattr(torch, dtype))
+        gen = torch.Generator().manual_seed(1)
+        grads = unflatten(params, [torch.randn(p.shape, generator=gen)
+                                   for p in leaves(params)])
+        return params, grads, init_opt_state(params)
+
+    kw = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    p0, g0, o0 = case()
+    p1, g1, o1 = case()
+    p2, g2, o2 = case()
+    _, _, m0 = adamw_update(kw, p0, g0, o0)
+    _, _, m1 = adamw_update(kw, p1, g1, o1, norm=global_norm(g1))
+    _, _, m2 = adamw_update(kw, p2, g2, o2, norm=2 * global_norm(g2))
+    assert torch.equal(m0["grad_norm"], m1["grad_norm"])
+    assert torch.equal(m2["grad_norm"], 2 * m1["grad_norm"])
+    for a, b in zip(leaves(p0) + leaves(o0), leaves(p1) + leaves(o1)):
+        assert torch.equal(a, b)
+    assert not all(torch.equal(a, b) for a, b in
+                   zip(leaves(o1["m"]), leaves(o2["m"])))
+
+
+SHARDED_ARGV = ["--device", "cpu", "--tiny", "--steps", "4", "--seq", "16",
+                "--global-batch", "4", "--ckpt-every", "2"]
+POLICIES = ("fsdp", "tp_only", "dp_only")
+# (arch, policy) of each 2-rank run: the MoE run splits every micro-batch
+# over both ranks, so its aux loss needs the whole micro-batch's routing
+SHARDED_RUNS = tuple(("stablelm_3b", p) for p in POLICIES) + (
+    ("granite_moe_3b_a800m", "dp_only"),)
+
+SHARDED_WORKER = r"""
+import os, sys
+import torch, torch.distributed as dist
+import repro_torch.launch.train as launcher
+from repro_torch.checkpoint import restore
+from repro_torch.core.tree import leaves
+from repro_torch.dist.sharded_train import gather
+rdzv, out, argv = sys.argv[1], sys.argv[2], sys.argv[3:]
+rank = int(os.environ["RANK"])
+real = launcher.init_model
+launcher.init_model = lambda cfg, gen, device: real(cfg, gen, device,
+                                                    torch.float32)
+
+
+def own_storage(tree):
+    # every local shard holds only its own bytes (no view of the full leaf)
+    return all(t.to_local().untyped_storage().nbytes()
+               == t.to_local().numel() * t.to_local().element_size()
+               for t in leaves(tree))
+
+
+for i, (arch, policy) in enumerate(%r):
+    # the first run joins the group through --coordinator; the later
+    # ones find it initialised
+    extra = ["--coordinator", "file://" + rdzv] if i == 0 else []
+    name = arch + "_" + policy
+    ckpt = os.path.join(out, name)
+    r = launcher.train(launcher.build_parser().parse_args(
+        argv + extra + ["--arch", arch, "--sharding-policy", policy,
+                        "--ckpt-dir", ckpt]))
+    state = r["state"]
+    full = gather(state)
+    sharded = sum(t.to_local().numel() < t.numel() for t in leaves(state))
+    # the checkpoint back onto this 2-rank mesh: each rank's shards
+    back, meta = restore(ckpt, state, shardings=r["placements"],
+                         mesh=r["mesh"])
+    same = all(torch.equal(a.to_local(), b.to_local())
+               for a, b in zip(leaves(back), leaves(state)))
+    if rank == 0:
+        torch.save({"losses": r["losses"], "state": full,
+                    "sharded_leaves": sharded, "restored_same": same,
+                    "own_storage": own_storage(state) and own_storage(back),
+                    "step": meta["step"],
+                    "mesh": list(r["mesh"].mesh.shape)},
+                   os.path.join(out, name + ".pt"))
+dist.destroy_process_group()
+""" % (SHARDED_RUNS,)
+
+
+def run_ranks(script: str, args, world: int, tmp, timeout=400):
+    """``script`` as ``world`` processes (RANK / WORLD_SIZE set), waited
+    for; their output on failure."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    path = tmp / "worker.py"
+    path.write_text(script)
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "WORLD_SIZE": str(world),
+           "PYTHONPATH": str(Path(__file__).resolve().parents[1] / "src")}
+    procs = [subprocess.Popen([sys.executable, str(path), *map(str, args)],
+                              env={**env, "RANK": str(r)},
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{out[-3000:]}"
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(tmp_path_factory):
+    """Tiny f32 runs of 4 steps on two gloo ranks (one launch): stablelm_3b
+    under each policy and granite_moe_3b_a800m under dp_only;
+    {(arch, policy): rank 0's losses, gathered state, ...}, and the
+    one-process run of each arch with the same arguments."""
+    tmp = tmp_path_factory.mktemp("sharded_train")
+    run_ranks(SHARDED_WORKER, [tmp / "rdzv", tmp, *SHARDED_ARGV], 2, tmp)
+    runs = {(a, p): torch.load(tmp / f"{a}_{p}.pt") for a, p in SHARDED_RUNS}
+    single = {}
+    with pytest.MonkeyPatch.context() as mp:
+        _f32_launcher(mp)
+        for arch in dict.fromkeys(a for a, _ in SHARDED_RUNS):
+            single[arch] = train(build_parser().parse_args(
+                SHARDED_ARGV + ["--arch", arch,
+                                "--ckpt-dir", str(tmp / f"single_{arch}")]))
+    return tmp, runs, single
+
+
+@pytest.mark.parametrize("arch,policy", [
+    pytest.param(a, p, id=p if a == "stablelm_3b" else f"{a}-{p}")
+    for a, p in SHARDED_RUNS])
+def test_sharded_training_equals_one_process(sharded_runs, arch, policy):
+    """Two ranks on a (1, 2) (data, model) mesh: fsdp / tp_only shard
+    storage over the model axis (each rank computes every row), dp_only
+    splits the batch over both ranks (granite's MoE aux loss then takes
+    the router statistics of the whole micro-batch); losses and final
+    params within 1e-5 relative of the one-process run (f32 sums in
+    another order).  Every local shard owns just its bytes."""
+    _, runs, single = sharded_runs
+    run, one = runs[arch, policy], single[arch]
+    assert run["mesh"] == [1, 2]
+    assert (run["sharded_leaves"] > 0) == (policy != "dp_only")
+    assert run["own_storage"]
+    np.testing.assert_allclose(run["losses"], one["losses"], rtol=1e-5)
+    for (path, a), b in zip(leaves_with_paths(run["state"]),
+                            leaves(one["state"])):
+        assert _rel(a.numpy(), b.numpy()) <= 1e-5, path_key(path)
+    assert run["restored_same"] and run["step"] == 4
+
+
+def test_sharded_checkpoint_resumes_on_one_rank(sharded_runs, f32_launcher,
+                                                tmp_path):
+    """The 2-rank fsdp run's checkpoint (written gathered, by rank 0)
+    restores with ``shardings=`` onto a one-rank mesh and resumes to step
+    6 bitwise equal to restoring it unsharded."""
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.dist.sharded_train import gather
+    src, _, _ = sharded_runs
+    argv = SHARDED_ARGV[:SHARDED_ARGV.index("--steps")] + ["--steps", "6"] \
+        + SHARDED_ARGV[SHARDED_ARGV.index("--steps") + 2:]
+    for name in ("plain", "sharded"):
+        shutil.copytree(src / "stablelm_3b_fsdp", tmp_path / name)
+    plain = train(build_parser().parse_args(
+        argv + ["--ckpt-dir", str(tmp_path / "plain")]))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdzv",
+                            rank=0, world_size=1)
+    try:
+        one = train(build_parser().parse_args(
+            argv + ["--ckpt-dir", str(tmp_path / "sharded"),
+                    "--sharding-policy", "fsdp"]))
+        state = gather(one["state"])
+    finally:
+        dist.destroy_process_group()
+    assert plain["start"] == one["start"] == 4
+    assert one["losses"] == plain["losses"] and len(one["losses"]) == 2
+    _assert_bitwise(state, plain["state"])
