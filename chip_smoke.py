@@ -239,7 +239,26 @@ Phases, in order; any failure exits non-zero:
                 stablelm_3b, 3 steps at 8 x 256, n_micro 2, remat True,
                 the same seed, batches and AdamWConfig: losses, final
                 params and f32 master bitwise equal; step times printed.
-  9. report   — one JSON line of kernels (launches summed over every run
+  9. tp       — the aligned-rows entry ``decode_attention`` (every row at
+                ``total_len - n``: the dense kernel) at stablelm_3b's
+                serving shapes, n 1 and 16, against
+                ``decode_attention_ref``; its two launches are a run of the
+                kernels line.  Then tensor-parallel training
+                (``dist.tensor_parallel``): full-width stablelm_3b cut to 8
+                of its 32 layers, the one-process ``train_step`` for 3
+                steps at 8 x 256, n_micro 2, remat True, bf16 params, then
+                the same steps from the same seed and batches by two ranks
+                of a (data 1, model 2) mesh, each a process of its own on
+                the one card, gloo over CUDA tensors (NCCL takes one rank
+                per device): each rank computes its 16 of the 32 heads,
+                its half of ``d_ff`` and of the vocabulary.  Held: the
+                first loss within 2e-3 and grad norm within 1e-2 relative
+                of the one process's, each rank's gathered params (what
+                its forward reads) at most 55 % of the one process's, the
+                phase within 60 s; printed: losses, grad norms, step
+                times, memory peaks, the largest difference of the final
+                params.  No kernel launches in training.
+  10. report  — one JSON line of kernels (launches summed over every run
                 above), the command time, the card line, and the final
                 {"ok": true, ...} line.
 """
@@ -3325,7 +3344,7 @@ def dist_train(mesh, card) -> None:
             state = shard_tree(state, placements, mesh)
             step = make_sharded_train_step(
                 cfg, opt_cfg, mesh, placements, TRAIN_BATCH, "fsdp",
-                n_micro=TRAIN_N_MICRO, remat=True)
+                n_micro=TRAIN_N_MICRO, remat=True, params=state["params"])
         losses, times = [], []
         for b in batches:
             (state["params"], state["opt"], m), dt = _timed(
@@ -3385,6 +3404,255 @@ def dist_phase(moe, card) -> None:
         dist_train(mesh, card)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# phase 9: tp — tensor-parallel training on two gloo ranks on the one card,
+# and the aligned-rows decode-attention entry
+# ---------------------------------------------------------------------------
+
+TP_LAYERS = 8             # full-width stablelm_3b cut to 8 of its 32 layers
+TP_STEPS = 3
+TP_LOSS_RTOL = 2e-3
+TP_NORM_RTOL = 1e-2
+TP_BYTES_SHARE = 0.55     # a rank's gathered params / the one process's
+TP_PHASE_S = 60.0
+TP_TIMEOUT_S = 300
+TP = {}
+
+
+def tp_config(layers=TP_LAYERS, reduced=False):
+    from repro_torch.configs import get_config
+    cfg = get_config("stablelm_3b", reduced=reduced)
+    return cfg if reduced else dataclasses.replace(cfg, n_layers=layers)
+
+
+def tp_batches(cfg, device):
+    from repro_torch.data import DataConfig, make_pipeline
+    data = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                    seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH))
+    return [{"tokens": torch.as_tensor(next(data)["tokens"], device=device)}
+            for _ in range(TP_STEPS)]
+
+
+def tp_opt_config():
+    from repro_torch.training import AdamWConfig
+    return AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TP_STEPS)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tp_worker(rank: int, port: int, out: str, device: str = "cuda",
+              reduced: bool = False) -> None:
+    """One of the two ranks of the tensor-parallel run, in a process of its
+    own: gloo over ``device`` tensors on a (data 1, model 2) mesh, fsdp,
+    ``TP_STEPS`` sharded steps from the seeded init; prints its result as
+    one ``TP_RESULT::`` JSON line (losses, grad norms, step times, its
+    gathered param bytes, its memory peak, and the largest difference of
+    its final param shards from the one-process run's in ``out``)."""
+    import math
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.tree import (leaves, leaves_with_paths, path_key,
+                                       tree_map)
+    from repro_torch.dist.sharded_train import (make_sharded_train_step,
+                                                state_placements)
+    from repro_torch.dist.tensor_parallel import tp_plan
+    from repro_torch.dist.sharding import block_of, shard_tree
+    from repro_torch.models import init_model
+    from repro_torch.training import init_opt_state
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh(torch.device(device).type, (1, 2),
+                                mesh_dim_names=("data", "model"))
+        cfg = tp_config(reduced=reduced)
+        params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                            device)
+        state = {"params": params, "opt": init_opt_state(params)}
+        del params
+        placements = state_placements(state, mesh, "fsdp")
+        state = shard_tree(state, placements, mesh)
+        step = make_sharded_train_step(
+            cfg, tp_opt_config(), mesh, placements, TRAIN_BATCH, "fsdp",
+            n_micro=TRAIN_N_MICRO, remat=True, params=state["params"])
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            # the peak of the steps, not of the whole init both ranks make
+            # before taking their shards
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        layout = step.keywords["layout"]
+        # the params the forward reads: this rank's model shards, and the
+        # leaves the plan uses whole
+        work_bytes = sum(leaves(tree_map(
+            lambda t, s, pl: math.prod(block_of(s, mesh, pl)[0])
+            * t.element_size(), state["params"], layout.shapes,
+            layout.work)))
+        losses, norms, times = [], [], []
+        for b in tp_batches(cfg, device):
+            _sync(device)
+            t0 = time.perf_counter()
+            state["params"], state["opt"], m = step(state["params"],
+                                                    state["opt"], b)
+            _sync(device)
+            times.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+        one = torch.load(Path(out) / "one.pt")
+        diff = 0.0
+        for path, t in leaves_with_paths(state["params"]):
+            want = one[path_key(path)]
+            shape, off = block_of(tuple(want.shape), mesh, t.placements)
+            want = want[tuple(slice(o, o + n) for o, n in zip(off, shape))]
+            got = t.to_local().detach().to("cpu")
+            diff = max(diff, float((got.float() - want.float()).abs().max()))
+        peak = (torch.cuda.max_memory_allocated() / 1e9
+                if torch.device(device).type == "cuda" else None)
+        print("TP_RESULT::" + json.dumps({
+            "rank": rank, "losses": losses, "grad_norms": norms,
+            "step_ms": times, "gathered_param_bytes": work_bytes,
+            "peak_gb": peak, "max_abs_param_diff": diff,
+            "tp_plan": tp_plan(cfg, 2)}),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_train(card, device: str = "cuda", reduced: bool = False) -> None:
+    """Tensor-parallel training on the card: the one-process ``train_step``
+    on 8-layer full-width stablelm_3b, then the same steps from the same
+    init and batches by two ranks (``tp_worker``) that split every attention
+    head, ``d_ff`` column and vocabulary block between them."""
+    from repro_torch.core.tree import leaves_with_paths, path_key
+    from repro_torch.models import init_model
+    from repro_torch.training import init_opt_state, make_train_step
+    t_phase = time.perf_counter()
+    cfg = tp_config(reduced=reduced)
+    out = OUT / "tp"
+    out.mkdir(parents=True, exist_ok=True)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                        device)
+    one_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, tp_opt_config(), n_micro=TRAIN_N_MICRO,
+                           remat=True)
+    losses, norms, times = [], [], []
+    for b in tp_batches(cfg, device):
+        _sync(device)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        _sync(device)
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if device == "cuda"
+            else None)
+    torch.save({path_key(p): t.detach().to("cpu")
+                for p, t in leaves_with_paths(params)}, out / "one.pt")
+    del params, opt, step
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    port = free_port()
+    env = {**__import__("os").environ,
+           "PYTHONPATH": f"{ROOT}:{ROOT / 'src'}", "OMP_NUM_THREADS": "4"}
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.OUT = c.Path({str(OUT)!r}); "
+         f"c.tp_worker({r}, {port}, {str(out)!r}, {device!r}, {reduced})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    (out / "one.pt").unlink()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"tp rank {r} failed (exit {p.returncode}):"
+                                 f"\n{text[-4000:]}")
+    ranks = [json.loads(next(ln for ln in text.splitlines()
+                             if ln.startswith("TP_RESULT::"))[11:])
+             for text in texts]
+    seconds = time.perf_counter() - t_phase
+    loss_err = max(abs(r["losses"][0] - losses[0]) / abs(losses[0])
+                   for r in ranks)
+    norm_err = max(abs(r["grad_norms"][0] - norms[0]) / abs(norms[0])
+                   for r in ranks)
+    share = max(r["gathered_param_bytes"] for r in ranks) / one_bytes
+    TP.update({"config": f"{cfg.name} {cfg.n_layers} layers, d "
+                         f"{cfg.d_model}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+                         f"n_micro {TRAIN_N_MICRO}, remat True, bf16 params",
+               "one_process": {"losses": losses, "grad_norms": norms,
+                               "step_ms": times, "peak_gb": peak,
+                               "param_bytes": one_bytes},
+               "ranks": ranks, "first_loss_rel_err": loss_err,
+               "first_grad_norm_rel_err": norm_err,
+               "gathered_param_share": share, "seconds": seconds})
+    print(f"  tp one process: {TP['config']}: losses "
+          + ", ".join(f"{x:.6f}" for x in losses) + "; grad norms "
+          + ", ".join(f"{x:.5f}" for x in norms) + "; step ms "
+          + ", ".join(f"{t:.1f}" for t in times)
+          + f"; params {one_bytes} bytes; memory peak {peak} GB [{card}]")
+    for r in ranks:
+        print(f"  tp rank {r['rank']} of 2 (gloo, model axis 2): losses "
+              + ", ".join(f"{x:.6f}" for x in r["losses"]) + "; grad norms "
+              + ", ".join(f"{x:.5f}" for x in r["grad_norms"]) + "; step ms "
+              + ", ".join(f"{t:.1f}" for t in r["step_ms"])
+              + f"; gathered params {r['gathered_param_bytes']} bytes "
+              f"({r['gathered_param_bytes'] / one_bytes:.3f} of one "
+              f"process's); memory peak {r['peak_gb']} GB; largest final "
+              f"param difference {r['max_abs_param_diff']:.4g}; plan "
+              f"{r['tp_plan']} [{card}]")
+    print(f"  tp: first loss rel err {loss_err:.3g} (limit {TP_LOSS_RTOL}), "
+          f"first grad norm rel err {norm_err:.3g} (limit {TP_NORM_RTOL}), "
+          f"gathered param share {share:.3f} (limit {TP_BYTES_SHARE}), "
+          f"phase {seconds:.1f} s (limit {TP_PHASE_S}) [{card}]")
+    if not (loss_err <= TP_LOSS_RTOL and norm_err <= TP_NORM_RTOL
+            and share <= TP_BYTES_SHARE and seconds <= TP_PHASE_S
+            and all(np.isfinite(r["losses"]).all() for r in ranks)):
+        raise AssertionError(f"tp: the two-rank run misses its bounds: "
+                             f"{json.dumps({k: TP[k] for k in ('first_loss_rel_err', 'first_grad_norm_rel_err', 'gathered_param_share', 'seconds')})}")
+
+
+def check_aligned(ops, card) -> float:
+    """The aligned-rows entry ``decode_attention`` (every row at
+    ``total_len - n``) at stablelm_3b's serving shapes, n = 1 and 16,
+    against ``decode_attention_ref``; returns the max abs error."""
+    h, kv, dh, b, cache_len = 32, 32, 80, 4, 200
+    err = 0.0
+    for n in (1, 16):
+        g = torch.Generator(device="cuda").manual_seed(40 + n)
+        q = torch.randn((b, n, h, dh), generator=g, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn((b, MAX_LEN, kv, dh), generator=g,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        got = ops.decode_attention(q, k, v, cache_len + n)
+        want = ops.decode_attention_ref(q, k, v, cache_len)
+        e = (got.float() - want.float()).abs()
+        err = max(err, float(e.max()))
+        if (not torch.isfinite(got).all()
+                or (e > KERNEL_ATOL + KERNEL_RTOL * want.float().abs()).any()):
+            raise AssertionError(f"decode_attention (aligned) n={n}: max abs "
+                                 f"err {float(e.max()):.4g}")
+        print(f"  aligned decode_attention h {h} kv {kv} dh {dh} b {b} n {n} "
+              f"total_len {cache_len + n}: max abs err {float(e.max()):.4g} "
+              f"against decode_attention_ref [{card}]")
+    return err
 
 
 # the serving phases whose kernel launches the analysis phase records:
@@ -3709,7 +3977,29 @@ def main() -> int:
     print(f"phase dist: {time.perf_counter() - t0:.1f} s, launches "
           f"{runs['dist']} [{card}]")
 
-    # 9. report
+    # 9. tp: the aligned decode-attention entry (the dense kernel), then
+    # tensor-parallel training (no kernel on its path)
+    t0 = time.perf_counter()
+    for fn in fns.values():
+        fn.launches = 0
+    aligned_err = check_aligned(ops, card)
+    runs["aligned"] = {k: fn.launches for k, fn in fns.items()}
+    if runs["aligned"]["dense"] != 2 or sum(runs["aligned"].values()) != 2:
+        raise AssertionError(f"aligned: launches {runs['aligned']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    for fn in fns.values():
+        fn.launches = 0
+    tp_train(card)
+    runs["tp"] = {k: fn.launches for k, fn in fns.items()}
+    if any(runs["tp"].values()):
+        raise AssertionError(f"tp: kernels launched {runs['tp']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase tp: {time.perf_counter() - t0:.1f} s, launches "
+          f"{runs['tp']} (aligned entry {runs['aligned']}) [{card}]")
+
+    # 10. report
     src = "src/repro_torch/csrc/decode_attention.cu"
     kernels = []
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3731,6 +4021,8 @@ def main() -> int:
                {key: t[n][mode][key] for key in keys}
                for arch, t in times_new.items() for n in (1, 16)},
             "launch_floor_ms": floor,
+            **({"aligned_entry_max_abs_err": aligned_err}
+               if mode == "dense" else {}),
             "launch_configurations": ANALYSIS[f"decode_attention_{mode}"]})
     r = moe_times["decode_balanced"]
     kernels.append({
@@ -3770,6 +4062,7 @@ def main() -> int:
                          scan_times["staircase"].items()},
         "launch_configurations": ANALYSIS["mamba_scan"]})
     print("dist summary: " + json.dumps(DIST))
+    print("tp summary: " + json.dumps(TP))
     print(json.dumps({"kernels": kernels}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s of command "
           "time")

@@ -47,6 +47,11 @@ DEFAULT_ROOTS = (
     "repro_torch.serving.engine.DecodeEngine.decode_slots",
     "repro_torch.training.train_step.train_step",
     "repro_torch.training.optimizer.adamw_update",
+    "repro_torch.dist.sharded_train.local_train_step",
+    "repro_torch.dist.tensor_parallel.attention",
+    "repro_torch.dist.tensor_parallel.embed",
+    "repro_torch.dist.tensor_parallel.vocab_parallel_cross_entropy",
+    "repro_torch.dist.tensor_parallel.gather_state",
 )
 
 _SCALAR_CASTS = {"int", "float", "bool", "complex"}

@@ -3,6 +3,9 @@
 The port serves on one NVIDIA H100 SXM; its peaks come from NVIDIA's
 H100 data sheet (dense bf16 tensor-core rate, HBM3 bandwidth, device
 memory).  The NFP budget reads ``H100.rho`` — about 295 FLOP per byte.
+The paper's three GPUs (its Table 2) are presets too, copied from the
+reference, so the predictors can be held against the paper's own numbers
+(Table 2 / Table 24); ``H100`` stays the default.
 """
 from __future__ import annotations
 
@@ -33,7 +36,12 @@ H100 = HardwareSpec(
     hbm_bytes=80e9,
 )
 
-PRESETS = {H100.name: H100}
+# --- the paper's GPUs (Table 2) --------------------------------------------
+H20 = HardwareSpec("h20", phi=148e12, beta=4.0e12)
+A800 = HardwareSpec("a800", phi=312e12, beta=2.039e12)
+H800 = HardwareSpec("h800", phi=989e12, beta=3.35e12)
+
+PRESETS = {h.name: h for h in (H100, H20, A800, H800)}
 
 BYTES_BF16 = 2
 BYTES_F32 = 4

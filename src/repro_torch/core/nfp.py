@@ -1,9 +1,18 @@
-"""Near-Free Parallelism: the model-level NFP budget (paper Eq. 12-14).
+"""Near-Free Parallelism: idle-compute baselines and the NFP principle —
+a copy of the reference ``core.nfp``, the paper's equations verbatim:
 
-The subset of the reference ``core.nfp`` that ``parallelism_budget``
-needs: the idle-compute boundaries of the dense FFN, MoE FFN, attention
-and SSM modules, and the first-exiting-module minimum over the modules
-an architecture contains.
+  Eq. 5   AI(N) = C(N)/B(N),  rho = phi/beta
+  Eq. 8/9    Dense FFN:  AI = 2bN/s          -> N_idle = rho*s/(2b)
+  Eq. 18/19  MoE FFN  (eta = 2 combine accesses)
+  Eq. 21/22  Attention (KV-cache dominated)
+  Eq. 12     dense model principle:   min(rho*s/2b, M_attn)
+  Eq. 13     MoE balanced principle:  min(M_moe*E/k, tau, M_attn)
+  Eq. 14     MoE skewed principle:    min(M_moe, M_attn)
+
+plus the reference's extensions: the generalized attention term for GQA
+/ MLA / SWA geometries, an SSM idle-compute term, and the model-level
+composition over an ArchConfig (first-exiting-module min) that
+``parallelism_budget`` reads.
 """
 from __future__ import annotations
 
@@ -21,6 +30,32 @@ ETA_COMBINE = 2  # paper footnote 2: per-expert activation accesses in combine
 INF = float("inf")
 
 
+# ===========================================================================
+# Arithmetic intensities (Eq. 8, 18, 21)
+# ===========================================================================
+
+def ai_dense(n: int, b: int, s: int = BYTES_BF16) -> float:
+    """Eq. 8: AI_dense(N) = 2bN/s (weight-traffic-dominated)."""
+    return 2.0 * b * n / s
+
+
+def ai_moe(n: int, b: int, k: int, e_act: int, d_ff: int,
+           s: int = BYTES_BF16, eta: int = ETA_COMBINE) -> float:
+    """Eq. 18."""
+    num = 4.0 * b * n * k * d_ff
+    den = s * (2.0 * e_act * d_ff + b * n * (1 + 3 * k + eta * k))
+    return num / den
+
+
+def ai_attn(n: int, ell: int, s: int = BYTES_BF16) -> float:
+    """Eq. 21 (MHA form; batch cancels)."""
+    return 2.0 * n * ell / ((ell + n) * s)
+
+
+# ===========================================================================
+# Idle-compute boundaries (Eq. 9, 19, 22)
+# ===========================================================================
+
 def n_idle_dense(rho: float, b: int, s: int = BYTES_BF16) -> float:
     """Eq. 9: N_idle^dense ~= rho*s / (2b)."""
     return rho * s / (2.0 * b)
@@ -33,6 +68,13 @@ def n_idle_moe(rho: float, b: int, k: int, e_act: int, d_ff: int,
     if gate <= 0:
         return INF
     return 2.0 * rho * s * e_act * d_ff / (b * gate)
+
+
+def n_idle_attn(rho: float, ell: int, s: int = BYTES_BF16) -> float:
+    """Eq. 22; +inf when 2L <= rho*s (memory-bound for all N)."""
+    if 2.0 * ell <= rho * s:
+        return INF
+    return rho * s * ell / (2.0 * ell - rho * s)
 
 
 def n_idle_attn_general(rho: float, ell: int, attn: AttentionSpec,
@@ -72,6 +114,44 @@ class NFPPrediction:
         if not math.isfinite(self.n_idle):
             return INF
         return self.n_idle / self.n_max if self.n_max > 0 else INF
+
+
+def predict_dense(hw: HardwareSpec, gran: GranularitySpec, b: int,
+                  s: int = BYTES_BF16) -> NFPPrediction:
+    """Eq. 12: N_max^dense ~= min(rho*s/2b, M_attn)."""
+    terms = {
+        "dense_ffn_idle": n_idle_dense(hw.rho, b, s),
+        "attn_tile": float(gran.m_attn),
+    }
+    lim = min(terms, key=terms.get)
+    return NFPPrediction(terms[lim], lim, terms, terms["dense_ffn_idle"])
+
+
+def predict_moe_balanced(hw: HardwareSpec, gran: GranularitySpec,
+                         n_experts: int, k: int, d_ff: int, b: int = 1,
+                         s: int = BYTES_BF16) -> NFPPrediction:
+    """Eq. 13: N_max^{moe,bal} ~= min(M_moe*E/k, tau, M_attn)."""
+    terms = {
+        "moe_padding_capacity": gran.m_moe * n_experts / k,
+        "tau_branch": float(gran.tau if gran.tau else n_experts),
+        "attn_tile": float(gran.m_attn),
+    }
+    lim = min(terms, key=terms.get)
+    idle = n_idle_moe(hw.rho, b, k, e_act=n_experts, d_ff=d_ff, s=s)
+    return NFPPrediction(terms[lim], lim, terms, idle)
+
+
+def predict_moe_skewed(hw: HardwareSpec, gran: GranularitySpec,
+                       k: int, d_ff: int, b: int = 1,
+                       s: int = BYTES_BF16) -> NFPPrediction:
+    """Eq. 14: N_max^{moe,skew} ~= min(M_moe, M_attn)."""
+    terms = {
+        "moe_padding_local": float(gran.m_moe),
+        "attn_tile": float(gran.m_attn),
+    }
+    lim = min(terms, key=terms.get)
+    idle = n_idle_moe(hw.rho, b, k, e_act=k, d_ff=d_ff, s=s)
+    return NFPPrediction(terms[lim], lim, terms, idle)
 
 
 def predict_model(cfg: ArchConfig, hw: HardwareSpec, gran: GranularitySpec,

@@ -1,5 +1,6 @@
 """repro_torch.dist — sharded execution: expert parallelism, sharding
-rules as DTensor placements, the sharded train step, and elastic /
+rules as DTensor placements, tensor parallelism on the model axis
+(``tensor_parallel``), the sharded train step, and elastic /
 fault-tolerant training (a copy of the reference's framework-free
 ``dist/elastic.py``)."""
 from repro_torch.dist.elastic import (StepWatchdog, UpdateInterrupted,

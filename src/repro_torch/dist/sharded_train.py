@@ -1,41 +1,56 @@
-"""Sharded training state and step over a ``DeviceMesh``.
+"""Sharded training state and step over a ``DeviceMesh``, tensor-parallel
+on the model axis.
 
 The state (params and the AdamW state) is stored as DTensors: each rank
 holds its shards under ``param_pspecs`` / ``opt_pspecs(..., mesh)``
 (the master, m and v of a replicated param are sharded over the data
-axes, ZeRO-2).  A step:
+axes, ZeRO-2).  A step, on plain local tensors:
 
-  1. gathers the full params (``full_tensor``: an all-gather per sharded
-     leaf);
+  1. gathers each param over the DATA axes only (an all-gather per leaf
+     the data axes shard).  A leaf the model axis shards stays this rank's
+     model shard where ``tensor_parallel.tp_plan`` computes its block on
+     shards, and is gathered over the model axis too where the plan runs
+     its block whole (``leaf_roles``); a replicated ``lm_head`` is sliced
+     to this rank's vocabulary columns;
   2. runs ``grad_accum_fn`` on this rank's rows of every micro-batch of
      the global batch (rows split as ``batch_pspec`` splits them: over the
-     data axes, and the model axis too under ``dp_only``);
+     data axes, and the model axis too under ``dp_only``) under
+     ``tensor_parallel.model_group``: every rank of a model group computes
+     its heads, ``d_ff`` columns and vocabulary block of the same rows,
+     and its gradients are those of its shards;
   3. all-reduces the f32 gradients, the loss and the CE over the ranks
      that split the batch, as a mean (the MoE aux loss reduces its router
      statistics over them in the forward, ``models.moe.batch_group``, so
-     it is the aux of the whole micro-batch);
-  4. runs ``adamw_update`` on this rank's shards, clipping by the global
-     norm of the full gradients.
+     it is the aux of the whole micro-batch); then completes the
+     gradients over the model group: summed where a rank's heads used a
+     whole leaf (``PARTIAL``), gathered where it used a slice
+     (``SLICE``);
+  4. runs ``adamw_update`` on this rank's shards in the optimizer state's
+     layout, clipping by the global norm: the squared norms of the model
+     shards summed over the model group, each other leaf counted once.
 
-Compute on the model axis is NOT tensor-parallel: the model axis shards
-storage only, and every rank runs the whole model on its rows.  At world
-size 1 the gather is a copy and the mean divides by 1, so a step is
-bitwise the unsharded ``train_step`` on the same state and batch.
+At world size 1 nothing is gathered, the mean divides by 1 and no model
+group is entered, so a step is bitwise the unsharded ``train_step`` on
+the same state and batch.  ``local_train_step`` is the step on local
+tensors (the dry run runs it as one rank of a fake group).
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.core.arch import ArchConfig
-from repro_torch.core.tree import leaves, tree_map
-from repro_torch.dist.sharding import (batch_pspec, opt_pspecs,
+from repro_torch.core.tree import leaves, tree_map, tree_map_with_path
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import (batch_pspec, block_of, mesh_axes,
+                                       opt_pspecs,
                                        param_pspecs, placements_from_pspecs,
-                                       shard_tensor, spec_axes)
+                                       spec_axes)
 from repro_torch.models.moe import batch_group
 from repro_torch.training.optimizer import (AdamWConfig, adamw_update,
                                             global_norm)
@@ -55,7 +70,7 @@ def state_placements(state: Dict, mesh, policy: str) -> Dict:
 
 def gather(tree):
     """The full tensors of a DTensor tree (a collective per leaf: every
-    rank must call it)."""
+    rank must call it); for checkpoints and checks, not the step."""
     return tree_map(lambda t: t.full_tensor(), tree)
 
 
@@ -119,17 +134,150 @@ def _mean(t: Tensor, group, size: int) -> Tensor:
     return t.div_(size)
 
 
-def _to_layout(dt, placements):
-    """``dt`` (a DTensor) under ``placements``: itself when they agree."""
-    if list(dt.placements) == list(placements):
-        return dt
-    return dt.redistribute(placements=placements)
+# ---------------------------------------------------------------------------
+# Layouts on local tensors
+# ---------------------------------------------------------------------------
+
+def relayout(t: Tensor, mesh, shape, src, dst) -> Tensor:
+    """The local block under placements ``dst`` of a tensor of global
+    ``shape`` whose local block under ``src`` is ``t``: a mesh dim that
+    ``src`` shards and ``dst`` does not is all-gathered (minor mesh dims
+    first, so blocks nest as JAX's), then the result is sliced to
+    ``dst``'s block.  ``t`` itself where the two agree."""
+    from torch.distributed.tensor import Replicate
+    src, dst = list(src), list(dst)
+    if src == dst:
+        return t
+    mid = list(src)
+    for i in reversed(range(len(src))):
+        if src[i] != dst[i] and src[i].is_shard():
+            t = tp.all_gather(t, src[i].dim, mesh.get_group(i), mesh.size(i))
+            mid[i] = Replicate()
+    if mid == dst:
+        return t
+    _, m_off = block_of(shape, mesh, mid)
+    d_shape, d_off = block_of(shape, mesh, dst)
+    return t[tuple(slice(o - m, o - m + n)
+                   for o, m, n in zip(d_off, m_off, d_shape))]
+
+
+@dataclasses.dataclass
+class StepLayout:
+    """Per param leaf: its global shape, its placements in storage, in
+    the optimizer state, for the forward (``work``) and of its completed
+    gradient (``grad``), and its ``tensor_parallel`` role."""
+    shapes: Any
+    params: Any
+    opt: Any
+    work: Any
+    grad: Any
+    roles: Any
+
+
+def step_layout(params, placements: Dict, mesh, cfg: ArchConfig,
+                tp_size: int) -> StepLayout:
+    """The layout of a step on ``params`` (anything with shapes) stored
+    under ``placements`` ({"params", "opt"}) with a model group of
+    ``tp_size`` ranks (1: no tensor parallelism)."""
+    from torch.distributed.tensor import Replicate, Shard
+    _, model = mesh_axes(mesh)
+    m_at = list(mesh.mesh_dim_names).index(model)
+
+    def role(path, t):
+        pl = _at(placements["params"], path)[m_at]
+        return tp.leaf_role(cfg, tp_size, path,
+                            pl.dim - t.dim() if pl.is_shard() else None)
+
+    roles = tree_map_with_path(role, params)
+
+    def work(t, r, for_grad):
+        out = [Replicate()] * mesh.ndim
+        if r.role == tp.LOCAL or (r.role == tp.SLICE and not for_grad):
+            out[m_at] = Shard(t.dim() + r.dim)
+        return out
+
+    return StepLayout(
+        shapes=tree_map(lambda t: tuple(t.shape), params),
+        params=placements["params"], opt=placements["opt"]["master"],
+        work=tree_map(lambda t, r: work(t, r, False), params, roles),
+        grad=tree_map(lambda t, r: work(t, r, True), params, roles),
+        roles=roles)
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _complete(g: Tensor, r: tp.Role, group, size: int) -> Tensor:
+    if r.role == tp.PARTIAL:
+        return tp.all_reduce(g, group)
+    if r.role == tp.SLICE:
+        return tp.all_gather(g, r.dim, group, size)
+    return g
+
+
+def _model_norm(grads, roles, group) -> Tensor:
+    """The global norm of gradients of which the LOCAL ones are model
+    shards (their squares summed over ``group``) and the rest whole."""
+    flat = leaves(grads)
+    sq = {True: [], False: []}
+    for g, r in zip(flat, leaves(roles)):
+        sq[r.role == tp.LOCAL].append(torch.sum(torch.square(g.float())))
+    total = tp.all_reduce(
+        sum(sq[True], torch.zeros((), device=flat[0].device)), group)
+    return torch.sqrt(sum(sq[False], total))
+
+
+def local_train_step(p_local, o_local, rows: Dict, *, cfg: ArchConfig,
+                     opt_cfg: AdamWConfig, mesh, layout: StepLayout,
+                     n_micro: int, group, blocks: int, model=None,
+                     aux_weight: float = 0.01, remat=True,
+                     compress: bool = False) -> Dict:
+    """One optimizer step on this rank's local shards ``p_local`` /
+    ``o_local`` (updated in place) from its pre-split ``rows`` (n_micro,
+    rows, ...); returns the metrics.  ``group`` / ``blocks``: the ranks
+    that split the batch; ``model``: (group, size, rank) of the model
+    axis, or None (no tensor parallelism)."""
+    m_group, m_size, m_rank = model or (None, 1, 0)
+    work = tree_map(lambda t, s, a, b: relayout(t, mesh, s, a, b), p_local,
+                    layout.shapes, layout.params, layout.work)
+    with tp.model_group(m_group, m_size, m_rank), batch_group(group, blocks):
+        grads, loss, ce = grad_accum_fn(work, cfg, rows, n_micro,
+                                        aux_weight, remat, compress)
+    del work
+    if group is not None:
+        for g in leaves(grads):
+            _mean(g, group, blocks)
+        loss, ce = _mean(loss, group, blocks), _mean(ce, group, blocks)
+    if m_size > 1:
+        grads = tree_map(lambda g, r: _complete(g, r, m_group, m_size),
+                         grads, layout.roles)
+        norm = _model_norm(grads, layout.roles, m_group)
+    else:
+        norm = global_norm(grads)
+    # the update runs in the optimizer state's layout; a param whose
+    # master is sharded further (ZeRO-2) is sliced to it and gathered back
+    upd = tree_map(lambda t, s, a, b: relayout(t, mesh, s, a, b), p_local,
+                   layout.shapes, layout.params, layout.opt)
+    g_upd = tree_map(lambda g, s, a, b: relayout(g, mesh, s, a, b), grads,
+                     layout.shapes, layout.grad, layout.opt)
+    del grads
+    _, _, om = adamw_update(opt_cfg, upd, g_upd, o_local, norm=norm)
+
+    def write_back(t, u, s, a, b):
+        if list(a) != list(b):
+            t.copy_(relayout(u, mesh, s, a, b))
+    tree_map(write_back, p_local, upd, layout.shapes, layout.opt,
+             layout.params)
+    return {"loss": loss, "ce": ce, **om}
 
 
 def sharded_train_step(params, opt_state, batch: Dict, *, cfg: ArchConfig,
-                       opt_cfg: AdamWConfig, mesh, placements: Dict,
+                       opt_cfg: AdamWConfig, mesh, layout: StepLayout,
                        n_micro: int, block: int, blocks: int, group,
-                       aux_weight: float = 0.01, remat=True,
+                       model=None, aux_weight: float = 0.01, remat=True,
                        compress: bool = False):
     """One optimizer step on DTensor ``params`` / ``opt_state`` (updated
     in place and returned) from the GLOBAL ``batch`` every rank holds;
@@ -139,43 +287,43 @@ def sharded_train_step(params, opt_state, batch: Dict, *, cfg: ArchConfig,
     if b % n_micro or (b // n_micro) % blocks:
         raise ValueError(f"batch {b} does not split into {n_micro} "
                          f"micro-batches over {blocks} ranks")
-    full = gather(params)
-    with batch_group(group, blocks):
-        grads, loss, ce = grad_accum_fn(
-            full, cfg, local_rows(batch, n_micro, block, blocks), n_micro,
-            aux_weight, remat, compress)
-    del full
-    if group is not None:
-        for g in leaves(grads):
-            _mean(g, group, blocks)
-        loss, ce = _mean(loss, group, blocks), _mean(ce, group, blocks)
-    norm = global_norm(grads)
-    # the update runs in the optimizer state's layout; a param whose
-    # master is sharded further (ZeRO-2) is sliced to it and gathered back
-    o_pl = placements["opt"]["master"]
-    p_work = tree_map(_to_layout, params, o_pl)
-    g_local = tree_map(lambda g, pl: shard_tensor(g, mesh, pl).to_local(),
-                       grads, o_pl)
-    del grads
-    _, _, om = adamw_update(opt_cfg, local(p_work), g_local,
-                            local(opt_state), norm=norm)
-    params = tree_map(_to_layout, p_work, placements["params"])
-    return params, opt_state, {"loss": loss, "ce": ce, **om}
+    metrics = local_train_step(
+        local(params), local(opt_state),
+        local_rows(batch, n_micro, block, blocks), cfg=cfg, opt_cfg=opt_cfg,
+        mesh=mesh, layout=layout, n_micro=n_micro, group=group,
+        blocks=blocks, model=model, aux_weight=aux_weight, remat=remat,
+        compress=compress)
+    return params, opt_state, metrics
+
+
+def model_axis(mesh, policy: str):
+    """(group, size, rank) of this rank's model axis for ``policy``, or
+    None: ``dp_only`` and a model axis of one rank compute whole."""
+    _, model = mesh_axes(mesh)
+    size = mesh.size(list(mesh.mesh_dim_names).index(model))
+    if policy == "dp_only" or size == 1:
+        return None
+    return mesh.get_group(model), size, mesh.get_local_rank(model)
 
 
 def make_sharded_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, mesh,
                             placements: Dict, global_batch: int,
                             policy: str, n_micro: int = 1, remat=True,
-                            compress: bool = False) -> Callable:
+                            compress: bool = False, *,
+                            params) -> Callable:
     """``sharded_train_step`` bound to this rank's rows of a
-    ``global_batch``-row batch and the group that splits them (built here:
-    every rank must call this, in the same order)."""
+    ``global_batch``-row batch, the group that splits them and the model
+    group (built here: every rank must call this, in the same order), for
+    ``params`` (the state's, or anything with their shapes)."""
     if global_batch % n_micro:
         raise ValueError(f"global_batch {global_batch} is not divisible by "
                          f"n_micro={n_micro}")
     axes, block, blocks = batch_split(mesh, global_batch // n_micro, policy)
+    model = model_axis(mesh, policy)
+    layout = step_layout(params, placements, mesh, cfg,
+                         1 if model is None else model[1])
     return functools.partial(
         sharded_train_step, cfg=cfg, opt_cfg=opt_cfg, mesh=mesh,
-        placements=placements, n_micro=n_micro, block=block, blocks=blocks,
-        group=axes_group(mesh, axes), remat=remat, compress=compress)
-
+        layout=layout, n_micro=n_micro, block=block, blocks=blocks,
+        group=axes_group(mesh, axes), model=model, remat=remat,
+        compress=compress)

@@ -377,6 +377,30 @@ def placements_from_pspecs(pspecs, mesh):
                     is_leaf=is_spec)
 
 
+def block_of(shape, mesh, placements) -> Tuple[Tuple[int, ...],
+                                               Tuple[int, ...]]:
+    """(local shape, global offset) of this rank's block of a ``shape``
+    tensor under ``placements`` on a ``DeviceMesh``: each sharding mesh
+    dim, in mesh order, splits the block its predecessors left (major to
+    minor, as DTensor and JAX nest them).  Plain integers, so it runs
+    under a fake mode too; the rules only ever shard evenly."""
+    out, off = list(shape), [0] * len(shape)
+    for i, (p, c) in enumerate(zip(placements, mesh.get_coordinate())):
+        if p.is_shard():
+            d, n = p.dim, mesh.size(i)
+            if out[d] % n:
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
+                                 f"divide over mesh dim {i} ({n})")
+            out[d] //= n
+            off[d] += c * out[d]
+    return tuple(out), tuple(off)
+
+
+def shardings_from_pspecs(pspecs, mesh):
+    """The reference's name for ``placements_from_pspecs``."""
+    return placements_from_pspecs(pspecs, mesh)
+
+
 def shard_tensor(full: torch.Tensor, mesh, placements):
     """This rank's block of ``full`` as a DTensor on ``mesh``: sliced
     locally, no communication (every rank holds ``full``).  A proper

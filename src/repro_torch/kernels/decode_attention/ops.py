@@ -319,6 +319,16 @@ def decode_attention_ragged(q: Tensor, k_cache: Tensor, v_cache: Tensor,
 decode_attention_ragged.launches = 0
 
 
+def decode_attention(q: Tensor, k_cache: Tensor, v_cache: Tensor,
+                     total_len, *, window: Optional[int] = None) -> Tensor:
+    """Aligned-rows entry: q (b, n, h, dh); ``total_len`` = cache_len + n
+    (a scalar: every row at the same position).  Every row's queries sit
+    at ``total_len - n``, through ``decode_attention_ragged`` (on the card
+    its dense kernel)."""
+    return decode_attention_ragged(q, k_cache, v_cache,
+                                   total_len - q.shape[1], window=window)
+
+
 def decode_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
                            cache_lens: Lens, block_tables: Tensor, *,
                            window: Optional[int] = None,

@@ -10,33 +10,39 @@ One JSON record per cell, ``<out>/<arch>__<shape>__<singlepod|multipod>
 whose record says "ok" is skipped unless ``--force``, and a shape the
 architecture does not take (``shape_applicable``) is recorded "skipped".
 
-The process joins a FAKE process group of 512 ranks (rank 0; no
-communication happens) and builds the production meshes on it: the
-multi-pod (2, 16, 16) mesh, and the single-pod (16, 16) mesh as its
-("data", "model") sub-mesh.  Per cell:
+The process joins a FAKE process group of 512 ranks (no communication
+happens) and builds the production meshes on it: the multi-pod (2, 16,
+16) mesh, and the single-pod (16, 16) mesh as its ("data", "model")
+sub-mesh.  Each cell runs ONCE, as rank 0: on rank 0's shards of the
+params, the optimizer state, the batch and the cache (fake tensors shaped
+by the cell's placements), through what a rank runs
+(``specs.rank_local_cell``): the sharded train step on local tensors, or
+the params gathered over the data axes and ``forward`` on the model
+axis's shards (``dist.tensor_parallel``; ``tp_plan``'s blocks are
+recorded).  A ``head``-mode cache is read in place where its heads split
+as the plan splits them; a ``seq``-mode cache (the ``opt`` decode
+variant), and any other leaf laid out otherwise, is all-gathered over the
+model axis per layer.  Per cell:
 
   placements  the cell's specs as DTensor placements on the mesh, each
               checked: sharded dims divisible, no axis used twice.
   memory      ``argument_bytes`` and ``output_bytes`` per device, exact,
               from the local shard shapes (an output spec of ``None`` is
-              replicated).  ``temp_bytes`` and ``peak_bytes`` are null: no
-              compiler reckons them here.
-  cost        ``flops`` of the cell's function run ONCE under
-              ``FakeTensorMode`` on the global shapes (no DTensor), counted
-              by ``FlopCounterMode``: the whole step's, not per device.  A
-              run past ``FLOP_LIMIT_S`` seconds records null and the reason
-              (the plain SSM scans step per position, so SSM / hybrid
-              prefill and train cells get there).
+              replicated; rank 0's shards must hold ``argument_bytes``);
+              ``peak_bytes``: the peak ``MemTracker`` follows over rank
+              0's run, its arguments tracked from the start;
+              ``temp_bytes`` = peak - argument - output, floored at 0.
+  cost        ``flops`` per device, counted by ``FlopCounterMode`` over
+              rank 0's run (an SPMD module's cost analysis is per device
+              too).
   collective_counts / collective_bytes
-              the collectives the placements imply, per kind: for each
-              parameter leaf, one layer's slice takes part in a DTensor
-              probe (``x @ w``, ``x * w`` for a vector, the embedding lookup
-              for a table, with ``x`` batch-sharded as the cell's tokens),
-              and what it launches (partial sums resolved) is multiplied by
-              the leaf's uses per step: layers x micro-batches, x 3 in a
-              train cell.  Bytes are the collectives' input bytes per
-              device.  XLA picks its own collectives, so these numbers are
-              NOT comparable with the reference's HLO counts.
+              what rank 0's run launched, per kind (``torch.distributed``
+              calls and functional collectives): how many, and their
+              input bytes per device.
+
+A run past ``FLOP_LIMIT_S`` seconds records null FLOPs, collectives and
+peak, and the reason (the plain SSM scans step per position, so SSM /
+hybrid prefill and train cells get there).
 """
 from __future__ import annotations
 
@@ -45,23 +51,20 @@ import json
 import logging
 import math
 import os
-import signal
 import time
 import traceback
-from contextlib import contextmanager
 from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.arch import LM_SHAPES, shape_applicable
-from repro_torch.core.tree import leaves, leaves_with_paths
-from repro_torch.dist.sharding import (P, is_spec, leaf_name,
-                                       local_shape, placements_for,
-                                       placements_from_pspecs, shard_bytes)
+from repro_torch.core.tree import leaves
+from repro_torch.dist.sharding import placements_from_pspecs, shard_bytes
+from repro_torch.dist.tensor_parallel import tp_plan
 from repro_torch.launch.mesh import MULTI_POD_AXES, MULTI_POD_SHAPE
-from repro_torch.launch.specs import (abstract, build_cell, fake_mode,
-                                      output_abstract)
+from repro_torch.launch.specs import (build_cell, fake_mode, output_abstract,
+                                      rank_local_cell)
 
 FLOP_LIMIT_S = 60.0
 KINDS = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all")
@@ -98,138 +101,132 @@ def fake_meshes() -> Dict[str, object]:
     return {"singlepod": multi["data", "model"], "multipod": multi}
 
 
-# ---------------------------------------------------------------------------
-# FLOPs under fake tensors, with a time limit
-# ---------------------------------------------------------------------------
-
 class FlopLimit(Exception):
     pass
 
 
-@contextmanager
-def _time_limit(seconds: float):
-    def _raise(signum, frame):
-        raise FlopLimit(f"the fake-tensor run passed {seconds:.0f} s")
-    old = signal.signal(signal.SIGALRM, _raise)
-    signal.setitimer(signal.ITIMER_REAL, seconds)
-    try:
-        yield
-    finally:
-        signal.setitimer(signal.ITIMER_REAL, 0)
-        signal.signal(signal.SIGALRM, old)
-
-
-def count_flops(fn, args):
-    """(FLOPs of ``fn(*args)`` under the fake mode, its outputs); FlopLimit
-    past ``FLOP_LIMIT_S`` seconds."""
-    from torch.utils.flop_counter import FlopCounterMode
-    with _time_limit(FLOP_LIMIT_S), fake_mode(), \
-            FlopCounterMode(display=False) as counter:
-        out = fn(*args)
-    return counter.get_total_flops(), out
-
-
-def _same_abstract(a, b) -> bool:
-    la, lb = leaves(a), leaves(b)
-    return len(la) == len(lb) and all(
-        tuple(x.shape) == tuple(y.shape) and x.dtype == y.dtype
-        for x, y in zip(la, lb))
-
-
 # ---------------------------------------------------------------------------
-# Collective probes
+# The rank-local run: FLOPs, collectives and peak memory
 # ---------------------------------------------------------------------------
 
-class _CollectiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
-    """Input bytes of every functional collective dispatched inside."""
-
-    def __init__(self):
-        super().__init__()
-        self.bytes = dict.fromkeys(KINDS, 0)
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        from torch.distributed.tensor import DTensor
-        if any(t is DTensor for t in types):
-            return NotImplemented       # let DTensor desugar into comms first
-        kind = _FUNCOL.get(func._overloadpacket.__name__)
-        if func.namespace == "_c10d_functional" and kind is not None:
-            t = args[0]
-            self.bytes[kind] += t.numel() * t.element_size()
-        return func(*args, **(kwargs or {}))
+# c10d ops (``torch.distributed``'s calls) and functional collectives
+_C10D = {"allreduce_": "all_reduce", "allgather_": "all_gather",
+         "_allgather_base_": "all_gather",
+         "allgather_into_tensor_coalesced_": "all_gather",
+         "reduce_scatter_": "reduce_scatter",
+         "_reduce_scatter_base_": "reduce_scatter",
+         "alltoall_": "all_to_all", "alltoall_base_": "all_to_all"}
 
 
-def _dtensor(shape, dtype, spec, mesh):
-    from torch.distributed.tensor import DTensor
-    return DTensor.from_local(
-        abstract(local_shape(shape, spec, mesh), dtype), mesh,
-        placements_for(spec, mesh), run_check=False, shape=tuple(shape),
-        stride=abstract(shape, dtype).stride())
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
 
 
-def probe_leaf(name: str, shape, dtype, spec, mesh, tokens: int,
-               bdim) -> Dict[str, Dict[str, int]]:
-    """The collectives one use of a (per-layer) weight of ``shape`` under
-    ``spec`` launches: ``x @ w`` (a matrix), ``x * w`` (a vector) or the
-    embedding lookup (a ``table``), ``x`` (``tokens``, ·) with its rows
-    sharded by ``bdim``.  A partial result is reduced (redistributed to
-    replicated on those mesh dims).  {"counts", "bytes"} per kind."""
-    import torch.nn.functional as F
-    from torch.distributed.tensor import Replicate
-    from torch.distributed.tensor.debug import CommDebugMode
-    with fake_mode():
-        w = _dtensor(shape, dtype, spec, mesh)
-        if "table" in name and len(shape) == 2:
-            x = _dtensor((tokens,), torch.int64, P(bdim), mesh)
-        else:
-            x = _dtensor((tokens, shape[0]), dtype, P(bdim, None), mesh)
-        nbytes = _CollectiveBytes()
-        with CommDebugMode() as comm, nbytes:
-            if "table" in name and len(shape) == 2:
-                y = F.embedding(x, w)
-            elif len(shape) == 2:
-                y = x @ w
-            else:
-                y = x * w
-            y.redistribute(placements=[Replicate() if p.is_partial() else p
-                                       for p in y.placements])
-    counts = dict.fromkeys(KINDS, 0)
-    for op, n in comm.get_comm_counts().items():
-        kind = _FUNCOL.get(getattr(op, "__name__", str(op)).split(".")[-1])
-        if kind is not None:
-            counts[kind] += n
-    return {"counts": counts, "bytes": nbytes.bytes}
+def _tracker_class():
+    from torch.distributed._tools.mem_tracker import MemTracker
+    from torch.utils.flop_counter import flop_registry
+
+    class CellTracker(MemTracker):
+        """``MemTracker`` (the memory the run holds, its peak) that in the
+        same dispatch counts FLOPs by ``FlopCounterMode``'s formulas and
+        logs every collective as (kind, input bytes per device): one
+        Python hop per op instead of three."""
+
+        def __init__(self):
+            super().__init__()
+            self.flops = 0
+            self.records = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            res = super().__torch_dispatch__(func, types, args, kwargs)
+            if res is NotImplemented:
+                return res
+            packet = func._overloadpacket
+            formula = flop_registry.get(packet)
+            if formula is not None:
+                self.flops += formula(*args, **(kwargs or {}), out_val=res)
+            kind = None
+            if func.namespace == "c10d":
+                kind = _C10D.get(packet.__name__)
+                # all but allreduce_ take (outputs, inputs, group, ...)
+                src = args[0] if packet.__name__ == "allreduce_" else args[1]
+            elif func.namespace == "_c10d_functional":
+                kind = _FUNCOL.get(packet.__name__)
+                src = args[0]
+            if kind is not None:
+                self.records.append((kind, sum(
+                    t.numel() * t.element_size() for t in _tensors(src))))
+            return res
+    return CellTracker
 
 
-def _stacked(path) -> bool:
-    """Whether a param leaf carries a leading layer axis."""
-    return "segments" in path or path[:2] == ("encoder", "layers")
-
-
-def probe_collectives(params, p_ps, mesh, *, tokens: int, bdim,
-                      n_micro: int, train: bool):
-    """(counts, bytes) per kind over every parameter leaf's uses in one
-    step (see the module docstring)."""
-    counts = dict.fromkeys(KINDS, 0)
+def collective_bytes(records):
+    """(bytes, counts) per kind of a tracker's collective records: the
+    collectives' input bytes per device, and how many were launched."""
     nbytes = dict.fromkeys(KINDS, 0)
-    specs = [s for _, s in leaves_with_paths(p_ps, (), is_spec)]
-    for (path, leaf), spec in zip(leaves_with_paths(params), specs):
-        shape = tuple(leaf.shape)
-        spec = tuple(spec or ()) + (None,) * (len(shape) - len(spec or ()))
-        uses = n_micro * (3 if train else 1)
-        if _stacked(path):
-            uses *= shape[0]
-            shape, spec = shape[1:], spec[1:]
-        if len(shape) > 2:              # experts: one (d, f) table each
-            uses *= math.prod(shape[:-2])
-            shape, spec = shape[-2:], spec[-2:]
-        if not shape:
-            continue
-        r = probe_leaf(leaf_name(path), shape, leaf.dtype, P(*spec), mesh,
-                       tokens, bdim)
-        for k in KINDS:
-            counts[k] += r["counts"][k] * uses
-            nbytes[k] += r["bytes"][k] * uses
-    return counts, nbytes
+    counts = dict.fromkeys(KINDS, 0)
+    for kind, n in records:
+        nbytes[kind] += n
+        counts[kind] += 1
+    return nbytes, counts
+
+
+def track_run(fn, args):
+    """``measure``'s numbers of ``fn(*args)``, run in this process with no
+    time limit."""
+    tracker = _tracker_class()()
+    tracker.track_external(*leaves(args))
+    with fake_mode(), tracker:
+        fn(*args)
+    nbytes, counts = collective_bytes(tracker.records)
+    peak = max(snap["Total"] for snap in
+               tracker.get_tracker_snapshot("peak").values())
+    return {"flops": int(tracker.flops), "collective_bytes": nbytes,
+            "collective_counts": counts, "peak_bytes": int(peak)}
+
+
+def _child(fn, args, conn) -> None:
+    try:
+        conn.send(track_run(fn, args))
+    except Exception:                                       # noqa: BLE001
+        conn.send({"error": traceback.format_exc()})
+    finally:
+        conn.close()
+        os._exit(0)
+
+
+def measure(fn, args):
+    """{"flops", "collective_bytes", "collective_counts", "peak_bytes"}
+    of ``fn(*args)`` run once under the fake mode as this rank, with its
+    arguments tracked from the start; FlopLimit past ``FLOP_LIMIT_S``
+    seconds.  The run is a forked child (the fake tensors and the fake
+    group are inherited; nothing runs on the idle thread pools, as with a
+    forked DataLoader worker), killed at the limit: an exception cannot
+    stop it, since one raised while saved-tensor hooks are pushed (a
+    checkpointed layer) or in some ops' autograd wrappers aborts the
+    process instead of unwinding."""
+    import multiprocessing
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=_child, args=(fn, args, send))
+    child.start()
+    send.close()
+    try:
+        if not recv.poll(FLOP_LIMIT_S):
+            raise FlopLimit(f"the fake-tensor run passed "
+                            f"{FLOP_LIMIT_S:.0f} s")
+        got = recv.recv()
+    finally:
+        child.kill()
+        child.join()
+        recv.close()
+    if "error" in got:
+        raise RuntimeError(f"rank 0's run failed:\n{got['error']}")
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +236,7 @@ def probe_collectives(params, p_ps, mesh, *, tokens: int, bdim,
 def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
              decode_positions: int = 1, force: bool = False,
              n_micro_override=None, tag: str = "", variant: str = "baseline",
-             meshes: Optional[Dict] = None, flops_memo: Optional[Dict] = None):
+             meshes: Optional[Dict] = None):
     mesh_name = "multipod" if multi_pod else "singlepod"
     if variant != "baseline" and not tag:
         tag = f"__{variant}"
@@ -265,35 +262,31 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
     try:
         mesh = (meshes or fake_meshes())[mesh_name]
         n_micro = n_micro_override or arch_n_micro(arch)
-        fn, args, in_ps, out_ps = build_cell(
-            cfg, shape, mesh, n_micro=n_micro,
-            decode_positions=decode_positions, variant=variant)
+        cell = build_cell(cfg, shape, mesh, n_micro=n_micro,
+                          decode_positions=decode_positions, variant=variant)
+        _, args, in_ps, out_ps = cell
         outs = output_abstract(cfg, args, shape.mode)
         # shard_bytes checks every leaf's spec (divisible, no axis twice);
         # the placements check the axes' order on the mesh
         arg_bytes = shard_bytes(args, in_ps, mesh)
         out_bytes = shard_bytes(outs, out_ps, mesh)
         placements_from_pspecs((in_ps, out_ps), mesh)
-        train = shape.mode == "train"
-        tok_spec = in_ps[2 if train else 1]["tokens"]
-        tok = args[2 if train else 1]["tokens"]
-        cell_micro = tok.shape[0] if train and tok.ndim == 3 else 1
-        coll, coll_bytes = probe_collectives(
-            args[0], in_ps[0], mesh, tokens=tok.shape[-2] * tok.shape[-1],
-            bdim=tok_spec[-2], n_micro=cell_micro, train=train)
+        fn, local, tp_size = rank_local_cell(cfg, shape, mesh, cell,
+                                             variant=variant)
+        local_bytes = sum(t.numel() * t.element_size()
+                          for t in leaves(local))
+        if local_bytes != arg_bytes:
+            raise AssertionError(f"{cell_id}: rank 0's shards hold "
+                                 f"{local_bytes} bytes, the specs "
+                                 f"{arg_bytes}")
         t_lower = time.time() - t0
-        key = (arch, shape.name, variant, decode_positions, n_micro)
-        memo = {} if flops_memo is None else flops_memo
-        if key not in memo:
-            try:
-                flops, got = count_flops(fn, args)
-                if not _same_abstract(got, outs):
-                    raise AssertionError(f"{cell_id}: outputs differ from "
-                                         "output_abstract")
-                memo[key] = (flops, None)
-            except FlopLimit as e:
-                memo[key] = (None, str(e))
-        flops, flops_reason = memo[key]
+        try:
+            got, reason = measure(fn, local), None
+        except FlopLimit as e:
+            got, reason = dict.fromkeys(
+                ("flops", "collective_bytes", "collective_counts",
+                 "peak_bytes")), str(e)
+        peak = got["peak_bytes"]
         t_flops = time.time() - t0 - t_lower
         rec.update(
             status="ok",
@@ -304,29 +297,33 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
             lower_s=round(t_lower, 1),
             compile_s=round(t_flops, 1),
             memory={"argument_bytes": arg_bytes, "output_bytes": out_bytes,
-                    "temp_bytes": None, "peak_bytes": None},
-            cost={"flops": flops, "bytes_accessed": None,
+                    "temp_bytes": (None if peak is None else
+                                   max(peak - arg_bytes - out_bytes, 0)),
+                    "peak_bytes": peak},
+            cost={"flops": got["flops"], "bytes_accessed": None,
                   "transcendentals": None},
-            collective_bytes=coll_bytes,
-            collective_counts=coll,
+            collective_bytes=got["collective_bytes"],
+            collective_counts=got["collective_counts"],
+            tp_plan=tp_plan(cfg, tp_size),
             params=cfg.param_count(),
             params_active=cfg.param_count(active_only=True),
-            notes={"lower_s": "build the cell, check its placements, run "
-                              "the collective probes",
-                   "compile_s": "the fake-tensor FLOP run (0 when the "
-                                "other mesh's run is reused)",
-                   "memory": "per device, from the local shard shapes; "
-                             "no compiler reckons temp / peak",
-                   "flops": "global (the whole step on every shard), "
-                            "FlopCounterMode under FakeTensorMode",
-                   "collectives": "DTensor probes per parameter leaf x "
-                                  "uses; not comparable with HLO counts"},
+            notes={"lower_s": "build the cell, check its placements, "
+                              "build rank 0's shards",
+                   "compile_s": "rank 0's run under the fake mode",
+                   "memory": "per device: argument / output bytes from "
+                             "the placements; peak from MemTracker over "
+                             "rank 0's run (arguments included), temp = "
+                             "peak - argument - output (floored at 0)",
+                   "flops": "per device: FlopCounterMode over rank 0's "
+                            "run on its shards",
+                   "collectives": "what rank 0's run launched, per kind: "
+                                  "count and input bytes per device"},
         )
-        if flops_reason:
-            rec["cost"]["flops_reason"] = flops_reason
+        if reason:
+            rec["cost"]["flops_reason"] = reason
         print(f"[ok]   {cell_id}  args={arg_bytes / 1e9:.3f} GB/device "
-              f"flops={flops if flops is None else f'{flops:.3g}'} "
-              f"flop_run={t_flops:.0f}s")
+              f"flops={_g(got['flops'])} peak={_g(peak)} "
+              f"run={t_flops:.0f}s")
     except Exception as e:                                  # noqa: BLE001
         rec.update(status="error", error=str(e)[:2000],
                    traceback=traceback.format_exc()[-4000:])
@@ -334,6 +331,10 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
     rec["wall_s"] = round(time.time() - t0, 1)
     _write(path, rec)
     return rec
+
+
+def _g(x) -> str:
+    return "null" if x is None else f"{x:.3g}"
 
 
 def _write(path, rec):
@@ -365,7 +366,6 @@ def main(argv=None) -> int:
     multis = {"single": [False], "multi": [True],
               "both": [False, True]}[args.mesh]
     meshes = fake_meshes()
-    memo: Dict = {}
     n_ok = n_fail = n_skip = 0
     try:
         for arch in archs:
@@ -374,7 +374,7 @@ def main(argv=None) -> int:
                     rec = run_cell(arch, shape, mp, args.out,
                                    decode_positions=args.decode_positions,
                                    force=args.force, variant=args.variant,
-                                   meshes=meshes, flops_memo=memo)
+                                   meshes=meshes)
                     s = rec["status"]
                     n_ok += s == "ok"
                     n_fail += s == "error"

@@ -12,6 +12,15 @@ production step functions' inputs at full size on any host, and
 Each cell builder returns ``(fn, args, in_specs, out_specs)``: ``fn``
 calls the port's ``forward`` or train step on ``args``, and the specs
 are ``dist.sharding`` PartitionSpec trees (``None``: replicated).
+
+``rank_local_cell`` turns a cell into what one rank of the mesh runs: its
+local shards of ``args`` (fake tensors, shaped by the cell's placements,
+the ones its argument bytes are reckoned from), and a function that runs
+the cell as that rank: the sharded train step on local tensors
+(``dist.sharded_train.local_train_step``), or the params gathered over
+the data axes and ``forward`` on the model axis's shards under
+``dist.tensor_parallel.model_group`` (the cache's layout given, so a
+cache leaf not laid out as its block reads it is gathered per layer).
 """
 from __future__ import annotations
 
@@ -22,10 +31,12 @@ import torch
 
 from repro_torch.core.arch import ArchConfig, ShapeSpec
 from repro_torch.core.granularity import round_up
-from repro_torch.core.tree import tree_map
-from repro_torch.dist.sharding import (P, batch_pspec, broadcast_specs,
-                                       cache_pspecs, local_shape, opt_pspecs,
-                                       param_pspecs)
+from repro_torch.core.tree import leaves, tree_map
+from repro_torch.dist.sharding import (P, batch_pspec, block_of,
+                                       broadcast_specs, cache_pspecs,
+                                       is_spec, local_shape,
+                                       mesh_axes, opt_pspecs, param_pspecs,
+                                       placements_from_pspecs, spec_axes)
 from repro_torch.models.transformer import forward, init_cache, init_model
 from repro_torch.training.optimizer import AdamWConfig, init_opt_state
 from repro_torch.training.train_step import make_train_step
@@ -95,6 +106,17 @@ def _opt_policy(cfg: ArchConfig) -> str:
     return "auto"
 
 
+def cell_policy(cfg: ArchConfig, mode: str, variant: str) -> str:
+    """The sharding policy of a cell's params."""
+    if variant != "opt":
+        return "fsdp"
+    if mode == "prefill" and _opt_policy(cfg) == "dp_only":
+        # dp_only is a TRAIN mapping (grads all-reduce once); prefill takes
+        # the auto (tp/fsdp) policy
+        return "auto"
+    return _opt_policy(cfg)
+
+
 def train_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
                n_micro: int = 4, remat=True, variant: str = "baseline"):
     dp_only = variant == "opt" and _opt_policy(cfg) == "dp_only"
@@ -124,7 +146,7 @@ def train_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
 
     params = params_abstract(cfg)
     opt = opt_abstract(params)
-    policy = _opt_policy(cfg) if variant == "opt" else "fsdp"
+    policy = cell_policy(cfg, "train", variant)
     p_ps = param_pspecs(params, mesh, policy=policy)
     o_ps = (opt_pspecs(opt, p_ps, mesh) if variant == "opt"
             else opt_pspecs(opt, p_ps))
@@ -173,10 +195,7 @@ def prefill_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
         return logits[:, -1], new_cache
 
     params = params_abstract(cfg)
-    # dp_only is a TRAIN mapping (grads all-reduce once); prefill takes the
-    # auto (tp/fsdp) policy
-    policy = (("auto" if _opt_policy(cfg) == "dp_only" else _opt_policy(cfg))
-              if variant == "opt" else "fsdp")
+    policy = cell_policy(cfg, "prefill", variant)
     # prefill keeps the head-mode cache: seq-sharding it during prefill
     # costs one full-KV reshard, which serving pays once per request at
     # the prefill -> decode transition
@@ -212,7 +231,7 @@ def decode_cell(cfg: ArchConfig, shape: ShapeSpec, mesh,
         return logits, new_cache
 
     params = params_abstract(cfg)
-    policy = _opt_policy(cfg) if variant == "opt" else "fsdp"
+    policy = cell_policy(cfg, "decode", variant)
     cmode = "seq" if variant == "opt" else "head"
     p_ps = param_pspecs(params, mesh, policy=policy)
     c_ps = cache_pspecs(cache, mesh, b, mode=cmode)
@@ -257,3 +276,83 @@ def materialize(tree, pspecs, mesh, device) -> Any:
     return tree_map(lambda leaf, spec: torch.empty(
         local_shape(leaf.shape, spec, mesh), dtype=leaf.dtype,
         device=device), tree, broadcast_specs(pspecs, tree))
+
+
+def to_shardings(pspecs, mesh):
+    """The reference's name: a spec tree's DTensor placements on a
+    ``DeviceMesh`` (a ``None`` leaf: replicated)."""
+    return placements_from_pspecs(pspecs, mesh)
+
+
+def local_abstract(tree, placements, mesh):
+    """This rank's shards of an abstract tree as fake tensors, shaped by
+    ``placements`` (a matching tree of placement lists) as DTensor shapes
+    them."""
+    return tree_map(lambda leaf, pl: abstract(
+        block_of(tuple(leaf.shape), mesh, pl)[0], leaf.dtype), tree,
+        placements)
+
+
+def _model_dims(c_ps, cache, mesh):
+    """Per cache leaf the dim (negative) its spec puts the model axis on,
+    or None."""
+    _, model = mesh_axes(mesh)
+
+    def dim(spec, leaf):
+        for i, entry in enumerate(tuple(spec or ())):
+            if model in spec_axes(entry):
+                return i - leaf.dim()
+        return None
+    return tree_map(dim, broadcast_specs(c_ps, cache), cache, is_leaf=is_spec)
+
+
+def rank_local_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, cell,
+                    variant: str = "baseline"):
+    """(fn, local args, model-axis size it computes over) of a built
+    ``cell`` = (fn, args, in_specs, out_specs) as this rank of ``mesh``
+    runs it (see the module docstring).  Every rank of the mesh's process group must call this,
+    in the same order (it builds the batch's group)."""
+    from repro_torch.dist import sharded_train as st
+    from repro_torch.dist import tensor_parallel as tp
+    fn, args, in_ps, _ = cell
+    placements = to_shardings(in_ps, mesh)
+    local = local_abstract(args, placements, mesh)
+    policy = cell_policy(cfg, shape.mode, variant)
+    model = st.model_axis(mesh, policy)
+    tp_size = 1 if model is None else model[1]
+    p_pl = placements[0]
+    if shape.mode == "train":
+        o_pl = placements[1]
+        layout = st.step_layout(args[0], {"params": p_pl, "opt": o_pl},
+                                mesh, cfg, tp_size)
+        n_micro, remat = fn.keywords["n_micro"], fn.keywords["remat"]
+        tokens = args[2]["tokens"]
+        mb = tokens.shape[-2]
+        axes, _, blocks = st.batch_split(mesh, mb, policy)
+        group = st.axes_group(mesh, axes)
+
+        def run(params, opt, rows):
+            return st.local_train_step(
+                params, opt, rows, cfg=cfg, opt_cfg=fn.keywords["opt_cfg"],
+                mesh=mesh, layout=layout, n_micro=n_micro, group=group,
+                blocks=blocks, model=model, remat=remat)
+        return run, local, tp_size
+    layout = st.step_layout(args[0], {"params": p_pl,
+                                      "opt": {"master": p_pl}}, mesh, cfg,
+                            tp_size)
+    dims = _model_dims(in_ps[2], args[2], mesh)
+    group = model
+    if model is None and any(d is not None for d in leaves(dims)):
+        # replicated params (dp_only) over a cache the model axis shards
+        _, axis = mesh_axes(mesh)
+        group = (mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(
+            axis)), mesh.get_local_rank(axis))
+
+    def run(params, *rest):
+        work = tree_map(lambda t, s, a, b: st.relayout(t, mesh, s, a, b),
+                        params, layout.shapes, layout.params, layout.work)
+        if group is None:
+            return fn(work, *rest)
+        with tp.model_group(*group, cache_dims=dims, whole=model is None):
+            return fn(work, *rest)
+    return run, local, tp_size

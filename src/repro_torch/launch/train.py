@@ -17,10 +17,12 @@ group, NCCL on the card (one rank per GPU, ``LOCAL_RANK``) and gloo with
 ``--device cpu``; a group already initialised by the caller is used as
 it is.  The mesh is ``elastic_mesh(world size)``; each rank keeps its
 shards of the params and the AdamW state under ``--sharding-policy``
-(``dist.sharded_train``: the full params are gathered every step, each
-rank computes the gradients of its rows of the global batch, and the
-gradients are averaged over the ranks that split the batch; the model
-axis shards storage only, its compute is not tensor-parallel).  Every
+(``dist.sharded_train``: every step gathers the params over the data
+axes only; each rank computes the gradients of its rows of the global
+batch on its model-axis shards, tensor-parallel where
+``dist.tensor_parallel.tp_plan`` splits a block on head or channel
+boundaries and whole where it does not; the gradients are averaged over
+the ranks that split the batch).  Every
 rank draws the same global batch from the stream and takes its rows, so
 a run gives the same batches at every world size.
 
@@ -136,7 +138,8 @@ def train(args) -> dict:
         del params
         step_fn = make_sharded_train_step(
             cfg, opt_cfg, mesh, placements, args.global_batch,
-            args.sharding_policy, n_micro=args.n_micro)
+            args.sharding_policy, n_micro=args.n_micro,
+            params=state["params"])
     else:
         step_fn = make_train_step(cfg, opt_cfg, n_micro=args.n_micro)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,

@@ -103,6 +103,17 @@ def init_kv_cache(batch: int, max_len: int, a: AttentionSpec,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def init_paged_kv_cache(n_phys: int, block_size: int, a: AttentionSpec,
+                        dtype=torch.bfloat16, device="cpu",
+                        lead: Tuple[int, ...] = ()) -> Dict[str, Tensor]:
+    """Paged decode cache: a GLOBAL pool of ``n_phys`` blocks of
+    ``block_size`` positions, shared by all slots through per-slot block
+    tables (``serving.paged.BlockManager``), with a leading ``lead`` layer
+    axis.  The last block is the write-dump page unattached table entries
+    point at."""
+    return init_kv_cache(n_phys, block_size, a, dtype, device, lead)
+
+
 # ===========================================================================
 # Cache helpers
 # ===========================================================================

@@ -139,6 +139,19 @@ def ragged_ffn(x_sorted: Tensor, params: Dict, group_sizes: Tensor,
     return out
 
 
+def route(params: Dict, f: FFNSpec, xt: Tensor
+          ) -> Tuple[Tensor, Tensor, Tensor]:
+    """(weights (T, k) f32, idx (T, k), the switch-style load-balance aux
+    loss) of rows ``xt`` (T, d) under the router."""
+    e = f.n_experts
+    weights, top_idx, probs = route_topk(params["router"], xt, f.top_k)
+    frac = F.one_hot(top_idx, e).float().mean(dim=(0, 1))
+    mean_p = probs.mean(dim=0)
+    if _BATCH_GROUP is not None:
+        frac, mean_p = _batch_stats(frac, mean_p)
+    return weights, top_idx, e * torch.sum(frac * mean_p)
+
+
 def moe_ffn(params: Dict, f: FFNSpec, x: Tensor,
             routing_override: Optional[Tuple[Tensor, Tensor]] = None,
             use_kernel: bool = False) -> Tuple[Tensor, Tensor]:
@@ -158,13 +171,7 @@ def moe_ffn(params: Dict, f: FFNSpec, x: Tensor,
         weights = weights.to(device=xt.device, dtype=torch.float32)
         aux = torch.zeros((), dtype=torch.float32, device=xt.device)
     else:
-        weights, top_idx, probs = route_topk(params["router"], xt, k)
-        # switch-style load-balance aux loss
-        frac = F.one_hot(top_idx, e).float().mean(dim=(0, 1))
-        mean_p = probs.mean(dim=0)
-        if _BATCH_GROUP is not None:
-            frac, mean_p = _batch_stats(frac, mean_p)
-        aux = e * torch.sum(frac * mean_p)
+        weights, top_idx, aux = route(params, f, xt)
 
     # --- dispatch: sort token-expert pairs by expert ----------------------
     flat_idx = top_idx.reshape(-1).long()

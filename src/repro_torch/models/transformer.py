@@ -47,17 +47,19 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.arch import (LAYER_ATTN, LAYER_HYBRID, LAYER_SSM,
                                    ArchConfig)
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.decode_attention.ops import row_lens
 from repro_torch.models.attention import (attention_decode, attention_full,
                                           cross_attention, encode_cross_kv,
-                                          init_attention, init_kv_cache)
+                                          init_attention, init_kv_cache,
+                                          init_paged_kv_cache)
 from repro_torch.models.layers import (embed, init_embedding, init_lm_head,
                                        init_mlp, init_rmsnorm, lm_head, mlp,
                                        rmsnorm, unembed_tied)
 from repro_torch.models.mamba import (init_mamba1, init_mamba1_state,
                                       init_mamba2, init_mamba2_state,
                                       mamba1_block, mamba2_block)
-from repro_torch.models.moe import init_moe, moe_ffn
+from repro_torch.models.moe import init_moe, moe_ffn, route
 
 Tensor = torch.Tensor
 
@@ -260,8 +262,8 @@ def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
                          f"architectures; {cfg.name} has SSM segments")
     dev = resolve_device(device)
     return {"segments": [
-        init_kv_cache(n_phys, block_size, cfg.attention, dtype, dev,
-                      (count,))
+        init_paged_kv_cache(n_phys, block_size, cfg.attention, dtype, dev,
+                            (count,))
         for _, count in make_segments(cfg)]}
 
 
@@ -272,34 +274,63 @@ def init_paged_cache(cfg: ArchConfig, n_phys: int, block_size: int,
 def _ffn_apply(lp, cfg: ArchConfig, h: Tensor, use_kernel: bool,
                routing_override) -> Tuple[Tensor, Optional[Tensor]]:
     """(out, aux loss); a dense FFN has no aux loss (None), and a layer
-    without an FFN adds zeros, as the reference's."""
-    if cfg.ffn.kind == "moe":
+    without an FFN adds zeros, as the reference's.  Under a model group
+    whose plan splits the FFN, each rank computes its ``d_ff`` columns
+    (every expert's) and the partial outputs are summed; the router runs
+    whole on every rank, outside the split, so its aux loss is the
+    unsplit one."""
+    if cfg.ffn.kind == "none":
+        return torch.zeros_like(h), None
+    if cfg.ffn.kind == "dense":
+        return _mlp_block(cfg, "ffn", lp["ffn"], h), None
+    if tp.mode(cfg, "ffn") != tp.TP:
         return moe_ffn(lp["ffn"], cfg.ffn, h,
                        routing_override=routing_override,
                        use_kernel=use_kernel)
-    if cfg.ffn.kind == "dense":
-        return mlp(lp["ffn"], h, cfg.ffn.activation), None
-    return torch.zeros_like(h), None
+    f = tp.local_ffn(cfg.ffn, tp.current().size)
+    hc = tp.copy_to_model(h)
+    if routing_override is None:
+        weights, idx, aux = route(lp["ffn"], f, h.reshape(-1, h.shape[-1]))
+        routing_override = (idx, tp.copy_to_model(weights))
+    else:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    out, _ = moe_ffn(lp["ffn"], f, hc, routing_override=routing_override,
+                     use_kernel=use_kernel)
+    return tp.reduce_from_model(out), aux
+
+
+def _attention_body(cfg: ArchConfig, positions, cache_len, mode: str,
+                    use_kernel: bool, block_tables=None,
+                    swa_ring: bool = False, causal: bool = True):
+    """The attention body ``(params, spec, h, cache) -> (out, cache)`` of
+    ``mode`` (``tensor_parallel.attention`` calls it on a local spec)."""
+    if mode == "decode":
+        return lambda p, a, h, c: attention_decode(
+            p, a, h, c, cache_len, cfg.rope_theta, use_kernel, swa_ring,
+            block_tables=block_tables)
+    return lambda p, a, h, c: attention_full(
+        p, a, h, positions, cfg.rope_theta, build_cache=c, cache_len=0,
+        causal=causal)
 
 
 def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
                 mode: str, use_kernel: bool, block_tables, routing_override,
-                memory: Optional[Tensor], swa_ring: bool = False
-                ) -> Tuple[Tensor, Optional[Tensor]]:
+                memory: Optional[Tensor], swa_ring: bool = False,
+                cache_dims=None) -> Tuple[Tensor, Optional[Tensor]]:
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    if mode == "decode":
-        att, _ = attention_decode(lp["attn"], cfg.attention, h, cache,
-                                  cache_len, cfg.rope_theta, use_kernel,
-                                  swa_ring, block_tables=block_tables)
-    else:
-        att, _ = attention_full(lp["attn"], cfg.attention, h, positions,
-                                cfg.rope_theta, build_cache=cache,
-                                cache_len=0)
-    x = x + att
+    x = x + tp.attention(tp.mode(cfg, "attn"), cfg.attention,
+                         _attention_body(cfg, positions, cache_len, mode,
+                                         use_kernel, block_tables, swa_ring),
+                         lp["attn"], h, cache, cache_dims)
     if memory is not None and "cross" in lp:
         hc = rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
-        ck, cv = encode_cross_kv(lp["cross"], cfg.attention, memory)
-        x = x + cross_attention(lp["cross"], cfg.attention, hc, ck, cv)
+        how = tp.mode(cfg, "cross")
+        mem = memory if how == tp.GATHERED else tp.copy_to_model(memory)
+
+        def cross(p, a, q, _):
+            ck, cv = encode_cross_kv(p, a, mem)
+            return cross_attention(p, a, q, ck, cv), None
+        x = x + tp.attention(how, cfg.attention, cross, lp["cross"], hc)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     ff, aux = _ffn_apply(lp, cfg, h2, use_kernel, routing_override)
     return x + ff, aux
@@ -316,31 +347,37 @@ def _ssm_layer(lp, cfg: ArchConfig, x: Tensor, state: Optional[Dict],
     return x + out, new_state
 
 
+def _mlp_block(cfg: ArchConfig, block: str, params: Dict, h: Tensor
+               ) -> Tensor:
+    """A dense MLP, on this rank's ``d_ff`` columns when the plan splits
+    ``block``."""
+    if tp.mode(cfg, block) != tp.TP:
+        return mlp(params, h, cfg.ffn.activation)
+    return tp.reduce_from_model(mlp(params, tp.copy_to_model(h),
+                                    cfg.ffn.activation))
+
+
 def _hybrid_layer(lp, shared, cfg: ArchConfig, x: Tensor, positions,
                   state: Optional[Dict], attn_cache: Optional[Dict],
-                  cache_len, mode: str, use_kernel: bool
+                  cache_len, mode: str, use_kernel: bool, cache_dims=None
                   ) -> Tuple[Tensor, Optional[Dict]]:
     """The SSM block, then the ONE shared attention + MLP block on the
     layer's own ``ln_shared`` and its own K/V cache (written in place)."""
     x, new_state = _ssm_layer(lp, cfg, x, state, use_kernel)
     h = rmsnorm(lp["ln_shared"], x, cfg.norm_eps)
-    if mode == "decode":
-        att, _ = attention_decode(shared["attn"], cfg.attention, h,
-                                  attn_cache, cache_len, cfg.rope_theta,
-                                  use_kernel)
-    else:
-        att, _ = attention_full(shared["attn"], cfg.attention, h, positions,
-                                cfg.rope_theta, build_cache=attn_cache,
-                                cache_len=0)
-    x = x + att
+    x = x + tp.attention(tp.mode(cfg, "shared_attn"), cfg.attention,
+                         _attention_body(cfg, positions, cache_len, mode,
+                                         use_kernel),
+                         shared["attn"], h, attn_cache, cache_dims)
     h2 = rmsnorm(shared["ln2"], x, cfg.norm_eps)
-    return x + mlp(shared["ffn"], h2, cfg.ffn.activation), new_state
+    return x + _mlp_block(cfg, "shared_ffn", shared["ffn"], h2), new_state
 
 
 def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
                        cfg: ArchConfig, shared: Optional[Dict], x: Tensor,
                        positions, cache_len, mode: str, use_kernel: bool,
-                       n_remat: int = 0) -> Tuple[Tensor, Optional[Dict]]:
+                       n_remat: int = 0, cache_dims=None
+                       ) -> Tuple[Tensor, Optional[Dict]]:
     """Run an SSM or hybrid segment's layers; returns (x, the segment's
     new cache): new stacked states (the states given are read, not
     written) and, hybrid, the K/V given, written in place.  Prefill starts
@@ -352,6 +389,9 @@ def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
         state = None if lc is None else segment_states(kind, lc)
         if state is not None and mode == "prefill":
             state = {k: torch.zeros_like(v) for k, v in state.items()}
+        state, local_state = tp.gather_state(
+            state, None if cache_dims is None
+            else segment_states(kind, cache_dims))
         if kind == LAYER_SSM:
             x, new_state = _call(_ssm_layer, i < n_remat, lp, cfg, x, state,
                                  use_kernel)
@@ -359,8 +399,9 @@ def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
             x, new_state = _call(
                 _hybrid_layer, i < n_remat, lp, shared, cfg, x, positions,
                 state, None if lc is None else lc["attn"], cache_len, mode,
-                use_kernel)
-        states.append(new_state)
+                use_kernel, None if cache_dims is None
+                else cache_dims["attn"])
+        states.append(None if new_state is None else local_state(new_state))
     if sc is None:
         return x, None
     new = {k: torch.stack([st[k] for st in states]) for k in states[0]}
@@ -387,13 +428,15 @@ def encode(params, cfg: ArchConfig, frames: Tensor) -> Tensor:
                        device=frames.device)[None].expand(b, f)
     x = (frames.float() + _sinusoidal(pos, d)).to(frames.dtype)
     ep = params["encoder"]
+
+    def body(p, a, h, _):
+        return attention_full(p, a, h, pos, cfg.rope_theta, causal=False)
     for lp in _unstack(ep["layers"], cfg.encoder.n_layers):
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-        att, _ = attention_full(lp["attn"], cfg.attention, h, pos,
-                                cfg.rope_theta, causal=False)
-        x = x + att
+        x = x + tp.attention(tp.mode(cfg, "encoder_attn"), cfg.attention,
+                             body, lp["attn"], h)
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + mlp(lp["ffn"], h2, cfg.ffn.activation)
+        x = x + _mlp_block(cfg, "encoder_ffn", lp["ffn"], h2)
     return rmsnorm(ep["final_norm"], x, cfg.norm_eps)
 
 
@@ -429,7 +472,10 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     if "embeds" in inputs:
         x = inputs["embeds"]
     else:
-        x = embed(params["embed"], inputs["tokens"])
+        if tp.mode(cfg, "embed") == tp.TP:
+            x = tp.embed(params["embed"]["table"], inputs["tokens"])
+        else:
+            x = embed(params["embed"], inputs["tokens"])
     b, s = x.shape[0], x.shape[1]
     memory = None
     if cfg.encoder is not None:
@@ -451,11 +497,12 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     for si, (kind, count) in enumerate(make_segments(cfg)):
         sp = params["segments"][si]
         sc = None if cache is None else cache["segments"][si]
+        cd = None if cache is None else tp.segment_cache_dims(si)
         n_remat = remat_count(remat, count) if cache is None else 0
         if kind != LAYER_ATTN:
             x, sc = _recurrent_segment(kind, sp, sc, count, cfg, shared, x,
                                        positions, cache_len, mode,
-                                       use_kernel, n_remat)
+                                       use_kernel, n_remat, cd)
             new_segments.append(sc)
             continue
         new_segments.append(sc)
@@ -463,10 +510,14 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
             x, layer_aux = _call(
                 _attn_layer, i < n_remat, lp, cfg, x, positions,
                 None if sc is None else _layer(sc, i), cache_len, mode,
-                use_kernel, block_tables, routing_override, memory, swa_ring)
+                use_kernel, block_tables, routing_override, memory, swa_ring,
+                cd)
             if layer_aux is not None:
                 auxes.append(layer_aux)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if tp.mode(cfg, "head") == tp.TP:
+        # this rank's block of the vocabulary's columns
+        x = tp.copy_to_model(x)
     if cfg.tie_embeddings:
         logits = unembed_tied(params["embed"], x)
     else:

@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core.arch import ArchConfig
 from repro_torch.core.tree import leaves, tree_map, unflatten
+from repro_torch.dist import tensor_parallel as tp
 from repro_torch.models.layers import softmax_cross_entropy
 from repro_torch.models.transformer import forward
 from repro_torch.training.optimizer import AdamWConfig, adamw_update
@@ -38,8 +39,11 @@ def loss_fn(params, cfg: ArchConfig, batch: Dict, aux_weight: float = 0.01,
         fwd_in["frames"] = batch["frames"]
     logits, _, aux, _ = forward(params, cfg, fwd_in, mode="train",
                                 remat=remat)
-    ce = softmax_cross_entropy(logits[:, :-1], batch["tokens"][:, 1:],
-                               batch.get("mask"))
+    # under a model group whose plan splits the vocabulary the logits are
+    # this rank's block of it
+    ce = (tp.vocab_parallel_cross_entropy
+          if tp.mode(cfg, "head") == tp.TP else softmax_cross_entropy)(
+        logits[:, :-1], batch["tokens"][:, 1:], batch.get("mask"))
     return ce + aux_weight * aux, {"ce": ce, "moe_aux": aux}
 
 

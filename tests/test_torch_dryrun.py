@@ -8,10 +8,16 @@ the bytes reckoned from the reference's ``build_cell`` args
 
 In one subprocess with the fake 512-rank process group: the CLI writes
 the reference's record keys, skips ``long_500k`` where the reference
-does, and its argument bytes are the ones reckoned here; two probe
-counts checked by hand (a ``tp_only`` row-parallel ``wo`` gives one
-all-reduce per use, an ``fsdp`` ``wq`` one all-gather); DTensor's blocks
-for a dim sharded by ("pod", "data") are JAX's (pod the major digit).
+does, and its argument bytes are the ones reckoned here; full-size
+stablelm_3b ``train_4k`` on the single-pod mesh runs as rank 0 (its
+per-device FLOPs x 256 are the whole step's, ``wo``'s row-parallel
+all-reduce comes once per layer per micro-batch forward, and the fsdp
+data-axis all-gather once per sharded leaf); every single-pod cell of
+stablelm_3b, granite_moe_3b_a800m, zamba2_1p2b and whisper_tiny records a
+peak that covers its arguments, or the time limit it hit (20 s here);
+DTensor's
+blocks for a dim sharded by ("pod", "data") are JAX's (pod the major
+digit).
 """
 from __future__ import annotations
 
@@ -120,12 +126,17 @@ def test_argument_bytes_equal_the_reference_cells(cached_ref_params, arch,
 # ---------------------------------------------------------------------------
 
 SCRIPT = r"""
-import json, sys
+import collections, json, sys
 import torch
 from repro_torch.configs import get_config
-from repro_torch.dist.sharding import P, param_pspecs
+from repro_torch.core.arch import LM_SHAPES
+from repro_torch.core.tree import leaves
+from repro_torch.dist import tensor_parallel as tp
+from repro_torch.dist.sharding import P, is_spec, param_pspecs, spec_axes
 from repro_torch.launch import dryrun
-from repro_torch.launch.specs import params_abstract
+from repro_torch.dist.sharding import shard_bytes
+from repro_torch.launch.specs import (build_cell, params_abstract,
+                                      rank_local_cell)
 out = sys.argv[1]
 assert dryrun.main(["--arch", "whisper_tiny", "--shape", "decode_32k",
                     "--mesh", "both", "--out", out]) == 0
@@ -134,19 +145,49 @@ assert dryrun.main(["--arch", "stablelm_3b", "--shape", "long_500k",
 res = {}
 meshes = dryrun.fake_meshes()
 single = meshes["singlepod"]
-params = params_abstract(get_config("stablelm_3b"))
-for policy, leaf in (("tp_only", "wo"), ("fsdp", "wq")):
-    spec = param_pspecs(params, single, policy)["segments"][0]["attn"][leaf]
-    w = params["segments"][0]["attn"][leaf]
-    res[f"{policy}_{leaf}"] = dryrun.probe_leaf(
-        leaf, w.shape[1:], w.dtype, P(*spec[1:]), single, 64 * 128, "data")
-    tree = {"segments": [{"attn": {leaf: w}}]}
-    ps = {"segments": [{"attn": {leaf: spec}}]}
-    res[f"{policy}_{leaf}_train_step"] = dryrun.probe_collectives(
-        tree, ps, single, tokens=64 * 128, bdim="data", n_micro=4,
-        train=True)[0]
-    res[f"{policy}_{leaf}_layers"] = w.shape[0]
-torch.distributed.destroy_process_group()
+# full-size stablelm_3b train_4k as rank 0, with no time limit in its way:
+# who calls reduce_from_model, and over which axis each all-gather runs
+callers = collections.Counter()
+real_reduce = tp.reduce_from_model
+
+
+def reduce_from_model(x):
+    callers[sys._getframe(1).f_code.co_name] += 1
+    return real_reduce(x)
+
+
+gathers = collections.Counter()
+real_gather = tp.all_gather
+names = {id(single.get_group(a)): a for a in ("data", "model")}
+
+
+def all_gather(t, dim, group, size):
+    gathers[names.get(id(group), "other")] += 1
+    return real_gather(t, dim, group, size)
+
+
+tp.reduce_from_model, tp.all_gather = reduce_from_model, all_gather
+cfg = get_config("stablelm_3b")
+shape = next(s for s in LM_SHAPES if s.name == "train_4k")
+cell = build_cell(cfg, shape, single, n_micro=dryrun.arch_n_micro(cfg.name))
+fn, local, tp_size = rank_local_cell(cfg, shape, single, cell)
+got = dryrun.track_run(fn, local)      # here, so the recorders see it
+tp.reduce_from_model, tp.all_gather = real_reduce, real_gather
+specs = param_pspecs(params_abstract(cfg), single)
+res["train"] = {"got": got, "tp_plan": tp.tp_plan(cfg, tp_size),
+                "argument_bytes": shard_bytes(cell[1], cell[2], single),
+                "callers": dict(callers),
+                "gathers": dict(gathers),
+                "data_sharded_leaves": sum(
+                    any("data" in spec_axes(e) for e in spec)
+                    for spec in leaves(specs, is_spec))}
+# every single-pod cell of four archs, under a shorter limit (main()
+# leaves no process group behind)
+dryrun.FLOP_LIMIT_S = 20
+for arch in ("stablelm_3b", "granite_moe_3b_a800m", "zamba2_1p2b",
+             "whisper_tiny"):
+    assert dryrun.main(["--arch", arch, "--mesh", "single", "--out",
+                        out]) == 0
 # DTensor's blocks for a dim sharded by ("pod", "data"), rank by rank
 from torch.distributed.tensor._utils import \
     compute_local_shape_and_global_offset
@@ -176,7 +217,7 @@ print("RESULT::" + json.dumps(res))
 def fake_group_run(tmp_path_factory):
     out = tmp_path_factory.mktemp("dryrun")
     r = subprocess.run([sys.executable, "-c", SCRIPT, str(out)],
-                       capture_output=True, text=True, timeout=300,
+                       capture_output=True, text=True, timeout=900,
                        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-3000:]
     line = [ln for ln in r.stdout.splitlines()
@@ -200,8 +241,10 @@ def test_cli_writes_the_reference_record(fake_group_run, mesh):
     assert REF_RECORD_KEYS <= set(rec)
     assert set(rec["memory"]) == {"argument_bytes", "output_bytes",
                                   "temp_bytes", "peak_bytes"}
-    assert rec["memory"]["temp_bytes"] is None
-    assert rec["memory"]["peak_bytes"] is None
+    mem = rec["memory"]
+    assert mem["peak_bytes"] >= mem["argument_bytes"]
+    assert mem["temp_bytes"] == max(mem["peak_bytes"] - mem["argument_bytes"]
+                                    - mem["output_bytes"], 0)
     assert set(rec["cost"]) >= {"flops", "bytes_accessed", "transcendentals"}
     assert rec["cost"]["flops"] > 0
     assert rec["n_devices"] == (256 if mesh == "singlepod" else 512)
@@ -210,6 +253,16 @@ def test_cli_writes_the_reference_record(fake_group_run, mesh):
     assert rec["memory"]["output_bytes"] > 0
     assert set(rec["collective_counts"]) == {"all_reduce", "all_gather",
                                              "reduce_scatter", "all_to_all"}
+    # whisper's 6 heads do not split over 16 ranks: its attention runs
+    # whole, its FFNs (d_ff 1536) on their shards
+    assert rec["tp_plan"]["attn"] == "gathered"
+    assert rec["tp_plan"]["ffn"] == "tp"
+    # one decode position per row: each rank's FLOPs are half as many on
+    # the multi-pod mesh, whose data axes split the batch twice as finely
+    other = json.loads((out / "whisper_tiny__decode_32k__singlepod.json")
+                       .read_text())
+    assert rec["cost"]["flops"] * (2 if mesh == "multipod" else 1) == \
+        other["cost"]["flops"]
 
 
 def test_cli_skips_long_500k_where_the_reference_does(fake_group_run):
@@ -220,25 +273,75 @@ def test_cli_skips_long_500k_where_the_reference_does(fake_group_run):
     assert not ok and rec["status"] == "skipped" and rec["reason"] == why
 
 
+N_LAYERS = 32                       # stablelm_3b
+
+
 def test_probe_row_parallel_wo_all_reduces_once(fake_group_run):
+    """Rank 0's train step on the fake group: ``wo``'s row-parallel
+    all-reduce (``reduce_from_model`` at the end of ``attention``) comes
+    once per layer per micro-batch forward; the train cell remats every
+    layer, so each micro-batch runs the forward twice (the step's and the
+    backward's recompute).  The FFN's comes once per layer per micro-batch:
+    the recompute stops before it, no saved tensor needing its output."""
     _, res = fake_group_run
-    r = res["tp_only_wo"]
-    assert r["counts"] == {"all_reduce": 1, "all_gather": 0,
-                           "reduce_scatter": 0, "all_to_all": 0}
-    # the (64 x 128 / 16 rows, 2560) bf16 partial output of one data shard
-    assert r["bytes"]["all_reduce"] == 64 * 128 // 16 * 2560 * 2
-    # per step: layers x 4 micro-batches x 3 products
-    assert res["tp_only_wo_train_step"]["all_reduce"] == \
-        res["tp_only_wo_layers"] * 4 * 3
+    r = res["train"]
+    assert r["tp_plan"] == {"embed": "tp", "head": "tp", "attn": "tp",
+                            "ffn": "tp"}
+    assert r["callers"]["attention"] == N_LAYERS * N_MICRO * 2
+    assert r["callers"]["_mlp_block"] == N_LAYERS * N_MICRO
+    assert r["callers"]["embed"] == N_MICRO
+    # besides: each micro-batch's loss (sum of exps, gold logit), the
+    # gradient copies, the mean over the data axis and the norm
+    assert r["got"]["collective_counts"]["all_reduce"] > sum(
+        r["callers"].values())
 
 
 def test_probe_fsdp_wq_all_gathers_once(fake_group_run):
+    """The fsdp data-axis all-gather: once per step for each leaf the data
+    axis shards (``wq`` one of them), before the forward; over the model
+    axis only the sliced ``lm_head``'s gradient is gathered."""
     _, res = fake_group_run
-    r = res["fsdp_wq"]
-    assert r["counts"] == {"all_reduce": 0, "all_gather": 1,
-                           "reduce_scatter": 0, "all_to_all": 0}
-    # its (2560 / 16, 2560 / 16) bf16 shard
-    assert r["bytes"]["all_gather"] == 160 * 160 * 2
+    r = res["train"]
+    assert r["gathers"]["data"] == r["data_sharded_leaves"] > 0
+    assert r["gathers"].get("model", 0) == 1
+    assert r["got"]["collective_counts"]["all_gather"] == \
+        r["data_sharded_leaves"] + 1
+
+
+def test_train_flops_per_device_are_the_global_steps_share(fake_group_run):
+    """Per-device FLOPs x 256 within 5 % of the whole step's 2.65e16 (the
+    global fake-tensor count recorded for this cell before the step ran
+    on its shards); its peak covers its arguments."""
+    _, res = fake_group_run
+    got = res["train"]["got"]
+    assert abs(got["flops"] * 256 / 2.65e16 - 1) <= 0.05
+    assert got["peak_bytes"] >= res["train"]["argument_bytes"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_peak_covers_the_arguments_on_every_ok_cell(fake_group_run, arch):
+    """Every single-pod cell the arch takes is ok; each records a peak of
+    at least its argument bytes and temp = peak - argument - output
+    (floored at 0), or null and the time limit it hit (20 s here; the
+    train cell of stablelm runs with none in the FLOPs test above)."""
+    out, _ = fake_group_run
+    recs = [json.loads(p.read_text())
+            for p in out.glob(f"{arch}__*__singlepod.json")]
+    assert len(recs) == len(LM_SHAPES)
+    for rec in recs:
+        if rec["status"] == "skipped":
+            continue
+        assert rec["status"] == "ok", rec.get("error")
+        mem = rec["memory"]
+        if mem["peak_bytes"] is None:
+            assert mem["temp_bytes"] is None
+            assert "passed 20 s" in rec["cost"]["flops_reason"]
+            continue
+        assert mem["peak_bytes"] >= mem["argument_bytes"], rec["shape"]
+        assert mem["temp_bytes"] == max(mem["peak_bytes"]
+                                        - mem["argument_bytes"]
+                                        - mem["output_bytes"], 0)
+        assert rec["cost"]["flops"] > 0
 
 
 def test_dtensor_blocks_are_jax_order(fake_group_run):
