@@ -110,7 +110,8 @@ Phases, in order; any failure exits non-zero:
                 the kernel up to GAP_TOL near-ties, and the full-size
                 forward the plain scan's; in bf16 both comparisons are
                 printed only (64 random-weight layers amplify a bf16
-                rounding into logits that part wholesale).
+                rounding into logits that part wholesale), the streams
+                against the first 4 requests' greedy_generate.
                 Then the paper's two validation models, full size, seeded
                 random bf16 weights, the same 8 requests: wedlm8b_like
                 (dense, GQA 32/8 x 128) paged greedy, paged MTP (a 4-head
@@ -127,7 +128,8 @@ Phases, in order; any failure exits non-zero:
                 (FORWARD_RTOL per position in bf16); batched diffusion
                 against the single-request DiffusionBlockDecoder at the
                 same block, request by request, parting only at a
-                near-tie of the selection (printed in bf16, held in f32);
+                near-tie of the selection (printed in bf16 for the first
+                4 requests, held in f32 for all 8);
                 the full-size forward kernel-vs-plain.  The diffusion runs
                 repeat in float32 (wedlm at full size, 33 GB; llada at
                 full width and 4 of its 20 layers, printed as a cut)
@@ -178,7 +180,8 @@ Phases, in order; any failure exits non-zero:
                 calibration on the card:
                 ``calibrate_engine`` (wall clock, CUDA events, the
                 captured step) on a dense 4-slot engine of 1024 positions
-                over ``width_grid(128)`` at buckets 64, 256 and 896, its
+                over ``width_grid(128)`` at buckets 64, 256 and 896 (2
+                warm-up forwards and 2 rounds of 5 a width), its
                 launches exactly layers x forwards: per bucket the measured
                 N_max beside the analytic budget, its limiting term, n_idle,
                 the noise and both over-prediction ratios, and the
@@ -257,7 +260,28 @@ Phases, in order; any failure exits non-zero:
                 its forward reads) at most 55 % of the one process's, the
                 phase within 60 s; printed: losses, grad norms, step
                 times, memory peaks, the largest difference of the final
-                params.  No kernel launches in training.
+                params.  Then ``fsdp``: the same steps from the same
+                seed and batches by two ranks of a (data 2, model 1) mesh,
+                each storing half of every param and AdamW leaf and
+                gathering each layer's params as it runs
+                (``dist.layer_gather``; gradients reduce-scattered back to
+                the shards), held against the same one-process run: first
+                loss within 2e-3, grad norm within 1e-2, each rank's
+                high-water mark of stored plus gathered param bytes at most
+                its shard + the leaves outside the layers + twice the
+                largest layer's gathered bytes; printed: step times,
+                collectives, memory peaks.  No kernel launches in
+                training.  With it, ``fsdp_decode`` (its two ranks run at
+                the same time as fsdp's, four processes): full-width
+                falcon_mamba_7b cut to 8 of its 64 layers, f32, a prefill
+                of 4 rows x 48 tokens and 8 one-position decode forwards
+                on the kernels, by one process and by two ranks of a
+                (data 2, model 1) mesh on 2 rows each, params stored
+                halved and gathered per layer: each rank's logits within
+                1e-4 (normwise) of its rows of the one process's, (8 + 1)
+                x 8 scan launches a rank (added to the kernels line); the
+                two runs within 150 s (gloo carries ~1 GB/s a rank pair
+                of their gathers through the host).
   10. report  — one JSON line of kernels (launches summed over every run
                 above), the command time, the card line, and the final
                 {"ok": true, ...} line.
@@ -1734,7 +1758,7 @@ def calibration_table(mods, cfg, params, card) -> dict:
         + f" (total {sum(captures.values()):.1f} s) [{card}]")
     for fn in fns.values():
         fn.launches = 0
-    warmup, rounds, iters = 3, 5, 5
+    warmup, rounds, iters = 2, 2, 5
     t0 = time.perf_counter()
     table = calibrate_engine(eng, modes=("greedy",), warmup=warmup,
                              rounds=rounds, iters=iters)
@@ -2373,9 +2397,10 @@ def diffusion_run(mods, cfg, params, prompts, card, *, block_size, block,
         return launches
     solo_block = widths[0]
     if solo_block not in solo_cache:
-        solo_cache[solo_block] = solo_diffusion(mods, cfg, params, prompts,
-                                                solo_block, card,
-                                                use_kernel=not f32)
+        # held in f32; printed only in bf16, on the first SOLO_PRINTED
+        solo_cache[solo_block] = solo_diffusion(
+            mods, cfg, params, prompts if f32 else prompts[:SOLO_PRINTED],
+            solo_block, card, use_kernel=not f32)
     solo, trace_b = solo_cache[solo_block]
     compare_diffusion(name, streams, solo, holder["trace"].trace, trace_b,
                       len(prompts[0]), solo_block,
@@ -2570,6 +2595,9 @@ def serve_ssm(mods, arch, card, forward_rtol) -> dict:
     return runs
 
 
+SOLO_PRINTED = 4
+
+
 def ssm_checks(mods, cfg, params, prompts, card, forward_rtol, held,
                forward_held, use_kernel=True):
     """Serve the 8 requests (``use_kernel`` False: through the plain
@@ -2586,8 +2614,10 @@ def ssm_checks(mods, cfg, params, prompts, card, forward_rtol, held,
         eager, _, _, _ = serve_run(mods, cfg, params, prompts, block_size=0,
                                    mode="greedy", card=card, capture=False)
         same_streams(f"{cfg.name} bf16 dense greedy", eager, served)
-    solo, rec_solo = solo_greedy(mods, cfg, params, prompts, card,
-                                 use_kernel)
+    # a comparison printed only takes the first SOLO_PRINTED requests
+    solo, rec_solo = solo_greedy(mods, cfg, params,
+                                 prompts if held else prompts[:SOLO_PRINTED],
+                                 card, use_kernel)
     compare_streams(f"{cfg.name} {dtype} dense greedy"
                     f"{'' if use_kernel else ' (plain versions)'}", solo,
                     served, [rec_solo, rec], ([], []), len(prompts[0]), {},
@@ -3418,6 +3448,14 @@ TP_NORM_RTOL = 1e-2
 TP_BYTES_SHARE = 0.55     # a rank's gathered params / the one process's
 TP_PHASE_S = 60.0
 TP_TIMEOUT_S = 300
+# the two ranks' mesh (data, model) per run of the worker
+TP_MESH = {"tp": (1, 2), "fsdp": (2, 1)}
+# the fsdp and fsdp_decode runs, at once: they move ~27 GB and ~50 GB
+# through gloo, which carries ~1 GB/s between two processes on one card
+FSDP_PHASE_S = 150.0
+FSDP_DECODE_LAYERS = 8    # full-width falcon_mamba_7b cut to 8 of its 64
+FSDP_ROWS, FSDP_PROMPT, FSDP_DECODES = 4, 48, 8
+FSDP_DECODE_RTOL = 1e-4   # normwise, f32
 TP = {}
 
 
@@ -3446,20 +3484,99 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _start_ranks(target: str, out: Path, device: str, reduced: bool,
+                 *extra, threads: int = 4) -> list:
+    """Start ``chip_smoke.<target>(rank, port, out, device, reduced,
+    *extra)`` as two processes (gloo over ``device`` tensors on the one
+    card); ``_ranks_results`` waits for them."""
+    port = free_port()
+    env = {**__import__("os").environ,
+           "PYTHONPATH": f"{ROOT}:{ROOT / 'src'}",
+           "OMP_NUM_THREADS": str(threads)}
+    args = "".join(f", {a!r}" for a in (str(out), device, reduced, *extra))
+    return [subprocess.Popen(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.OUT = c.Path({str(OUT)!r}); "
+         f"c.{target}({r}, {port}{args})"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in (0, 1)]
+
+
+def _ranks_results(procs: list, target: str) -> list:
+    """Each rank's ``TP_RESULT::`` JSON of ``_start_ranks``' processes,
+    which are waited for (at most ``TP_TIMEOUT_S``) and stopped."""
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if p.returncode != 0:
+            raise AssertionError(f"{target} rank {r} failed (exit "
+                                 f"{p.returncode}):\n{text[-4000:]}")
+    return [json.loads(next(ln for ln in text.splitlines()
+                            if ln.startswith("TP_RESULT::"))[11:])
+            for text in texts]
+
+
+def _count_collectives(counts: dict) -> None:
+    """Count ``tensor_parallel``'s all-gathers and reduce-scatters (and
+    the bytes they return) into ``counts``."""
+    from repro_torch.dist import tensor_parallel as tp
+    for name in ("all_gather", "reduce_scatter"):
+        real = getattr(tp, name)
+
+        def counted(t, dim, group, size, _real=real, _name=name):
+            got = _real(t, dim, group, size)
+            counts[_name] = counts.get(_name, 0) + 1
+            counts[_name + "_bytes"] = counts.get(_name + "_bytes", 0) + \
+                got.numel() * got.element_size()
+            return got
+        setattr(tp, name, counted)
+
+
+def _gathered_bytes_bound(params, layout, mesh, n_layers: int) -> dict:
+    """{"stored", "outside", "layer"}: this rank's stored param bytes,
+    the bytes of the leaves outside the layers as a layer computes with
+    them, and one layer's."""
+    import math
+    from repro_torch.core.tree import leaves_with_paths, tree_map
+    from repro_torch.dist.sharding import block_of
+    work = tree_map(lambda t, s, pl: math.prod(block_of(s, mesh, pl)[0])
+                    * t.element_size(), params, layout.shapes, layout.work)
+    layer = outside = 0
+    for path, n in leaves_with_paths(work):
+        if path[0] == "segments":
+            layer += n // n_layers
+        else:
+            outside += n
+    stored = sum(t.to_local().numel() * t.element_size()
+                 for _, t in leaves_with_paths(params))
+    return {"stored": stored, "outside": outside, "layer": layer}
+
+
 def tp_worker(rank: int, port: int, out: str, device: str = "cuda",
-              reduced: bool = False) -> None:
-    """One of the two ranks of the tensor-parallel run, in a process of its
-    own: gloo over ``device`` tensors on a (data 1, model 2) mesh, fsdp,
-    ``TP_STEPS`` sharded steps from the seeded init; prints its result as
-    one ``TP_RESULT::`` JSON line (losses, grad norms, step times, its
-    gathered param bytes, its memory peak, and the largest difference of
-    its final param shards from the one-process run's in ``out``)."""
+              reduced: bool = False, mode: str = "tp") -> None:
+    """One of the two ranks of the sharded run ``mode``, in a process of
+    its own: gloo over ``device`` tensors on a (data 1, model 2) mesh
+    (``tp``) or a (data 2, model 1) mesh (``fsdp``: each layer's params
+    gathered over the data axis as it runs, the gradients reduce-scattered
+    back), fsdp sharding, ``TP_STEPS`` sharded steps from the seeded init;
+    prints its result as one ``TP_RESULT::`` JSON line (losses, grad
+    norms, step times, the param bytes its forward reads, its high-water
+    mark of stored plus gathered param bytes and the bound on it, its
+    collectives, its memory peak, and the largest difference of its final
+    param shards from the one-process run's in ``out``)."""
     import math
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core.tree import (leaves, leaves_with_paths, path_key,
                                        tree_map)
+    from repro_torch.dist import layer_gather as lg
     from repro_torch.dist.sharded_train import (make_sharded_train_step,
                                                 state_placements)
     from repro_torch.dist.tensor_parallel import tp_plan
@@ -3470,7 +3587,7 @@ def tp_worker(rank: int, port: int, out: str, device: str = "cuda",
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             rank=rank, world_size=2)
     try:
-        mesh = init_device_mesh(torch.device(device).type, (1, 2),
+        mesh = init_device_mesh(torch.device(device).type, TP_MESH[mode],
                                 mesh_dim_names=("data", "model"))
         cfg = tp_config(reduced=reduced)
         params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
@@ -3495,6 +3612,11 @@ def tp_worker(rank: int, port: int, out: str, device: str = "cuda",
             lambda t, s, pl: math.prod(block_of(s, mesh, pl)[0])
             * t.element_size(), state["params"], layout.shapes,
             layout.work)))
+        bound = _gathered_bytes_bound(state["params"], layout, mesh,
+                                      cfg.n_layers)
+        counts = {}
+        _count_collectives(counts)
+        lg.reset_peak()
         losses, norms, times = [], [], []
         for b in tp_batches(cfg, device):
             _sync(device)
@@ -3516,20 +3638,29 @@ def tp_worker(rank: int, port: int, out: str, device: str = "cuda",
         peak = (torch.cuda.max_memory_allocated() / 1e9
                 if torch.device(device).type == "cuda" else None)
         print("TP_RESULT::" + json.dumps({
-            "rank": rank, "losses": losses, "grad_norms": norms,
+            "rank": rank, "mode": mode, "mesh": TP_MESH[mode],
+            "losses": losses, "grad_norms": norms,
             "step_ms": times, "gathered_param_bytes": work_bytes,
+            "high_water_bytes": bound["stored"]
+            + lg.gathered_bytes()["peak"],
+            "high_water_bound": bound["stored"] + bound["outside"]
+            + 2 * bound["layer"], **bound, "collectives": counts,
+            "reduce_scatter": f"dist.reduce_scatter_tensor on "
+                              f"{dist.get_backend()}",
             "peak_gb": peak, "max_abs_param_diff": diff,
-            "tp_plan": tp_plan(cfg, 2)}),
+            "tp_plan": tp_plan(cfg, TP_MESH[mode][1])}),
             flush=True)
     finally:
         dist.destroy_process_group()
 
 
 def tp_train(card, device: str = "cuda", reduced: bool = False) -> None:
-    """Tensor-parallel training on the card: the one-process ``train_step``
-    on 8-layer full-width stablelm_3b, then the same steps from the same
-    init and batches by two ranks (``tp_worker``) that split every attention
-    head, ``d_ff`` column and vocabulary block between them."""
+    """Sharded training on the card: the one-process ``train_step`` on
+    8-layer full-width stablelm_3b, then the same steps from the same
+    init and batches by two ranks (``tp_worker``) that split every
+    attention head, ``d_ff`` column and vocabulary block between them
+    (``tp``), held against it.  Leaves the one process's final params in
+    ``<OUT>/tp/one.pt`` for ``fsdp_runs``."""
     from repro_torch.core.tree import leaves_with_paths, path_key
     from repro_torch.models import init_model
     from repro_torch.training import init_opt_state, make_train_step
@@ -3562,36 +3693,10 @@ def tp_train(card, device: str = "cuda", reduced: bool = False) -> None:
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    port = free_port()
-    env = {**__import__("os").environ,
-           "PYTHONPATH": f"{ROOT}:{ROOT / 'src'}", "OMP_NUM_THREADS": "4"}
-    procs = [subprocess.Popen(
-        [sys.executable, "-c",
-         f"import chip_smoke as c; c.OUT = c.Path({str(OUT)!r}); "
-         f"c.tp_worker({r}, {port}, {str(out)!r}, {device!r}, {reduced})"],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in (0, 1)]
-    texts = []
-    try:
-        for p in procs:
-            texts.append(p.communicate(timeout=TP_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            p.kill()
-            p.wait()
-    (out / "one.pt").unlink()
-    for r, (p, text) in enumerate(zip(procs, texts)):
-        if p.returncode != 0:
-            raise AssertionError(f"tp rank {r} failed (exit {p.returncode}):"
-                                 f"\n{text[-4000:]}")
-    ranks = [json.loads(next(ln for ln in text.splitlines()
-                             if ln.startswith("TP_RESULT::"))[11:])
-             for text in texts]
+    ranks = _ranks_results(_start_ranks("tp_worker", out, device, reduced,
+                                        "tp"), "tp_worker")
     seconds = time.perf_counter() - t_phase
-    loss_err = max(abs(r["losses"][0] - losses[0]) / abs(losses[0])
-                   for r in ranks)
-    norm_err = max(abs(r["grad_norms"][0] - norms[0]) / abs(norms[0])
-                   for r in ranks)
+    loss_err, norm_err = _first_errors(ranks, losses, norms)
     share = max(r["gathered_param_bytes"] for r in ranks) / one_bytes
     TP.update({"config": f"{cfg.name} {cfg.n_layers} layers, d "
                          f"{cfg.d_model}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
@@ -3607,16 +3712,7 @@ def tp_train(card, device: str = "cuda", reduced: bool = False) -> None:
           + ", ".join(f"{x:.5f}" for x in norms) + "; step ms "
           + ", ".join(f"{t:.1f}" for t in times)
           + f"; params {one_bytes} bytes; memory peak {peak} GB [{card}]")
-    for r in ranks:
-        print(f"  tp rank {r['rank']} of 2 (gloo, model axis 2): losses "
-              + ", ".join(f"{x:.6f}" for x in r["losses"]) + "; grad norms "
-              + ", ".join(f"{x:.5f}" for x in r["grad_norms"]) + "; step ms "
-              + ", ".join(f"{t:.1f}" for t in r["step_ms"])
-              + f"; gathered params {r['gathered_param_bytes']} bytes "
-              f"({r['gathered_param_bytes'] / one_bytes:.3f} of one "
-              f"process's); memory peak {r['peak_gb']} GB; largest final "
-              f"param difference {r['max_abs_param_diff']:.4g}; plan "
-              f"{r['tp_plan']} [{card}]")
+    _print_train_ranks(ranks, one_bytes, card)
     print(f"  tp: first loss rel err {loss_err:.3g} (limit {TP_LOSS_RTOL}), "
           f"first grad norm rel err {norm_err:.3g} (limit {TP_NORM_RTOL}), "
           f"gathered param share {share:.3f} (limit {TP_BYTES_SHARE}), "
@@ -3626,6 +3722,222 @@ def tp_train(card, device: str = "cuda", reduced: bool = False) -> None:
             and all(np.isfinite(r["losses"]).all() for r in ranks)):
         raise AssertionError(f"tp: the two-rank run misses its bounds: "
                              f"{json.dumps({k: TP[k] for k in ('first_loss_rel_err', 'first_grad_norm_rel_err', 'gathered_param_share', 'seconds')})}")
+
+
+def _first_errors(ranks, losses, norms) -> tuple:
+    """(first loss, first grad norm) relative errors of the ranks against
+    the one process's."""
+    return (max(abs(r["losses"][0] - losses[0]) / abs(losses[0])
+                for r in ranks),
+            max(abs(r["grad_norms"][0] - norms[0]) / abs(norms[0])
+                for r in ranks))
+
+
+def _print_train_ranks(ranks, one_bytes: int, card) -> None:
+    for r in ranks:
+        print(f"  {r['mode']} rank {r['rank']} of 2 (gloo, mesh data x model "
+              f"{r['mesh'][0]} x {r['mesh'][1]}): losses "
+              + ", ".join(f"{x:.6f}" for x in r["losses"]) + "; grad norms "
+              + ", ".join(f"{x:.5f}" for x in r["grad_norms"]) + "; step ms "
+              + ", ".join(f"{t:.1f}" for t in r["step_ms"])
+              + f"; gathered params {r['gathered_param_bytes']} bytes "
+              f"({r['gathered_param_bytes'] / one_bytes:.3f} of one "
+              f"process's); stored + gathered high-water mark "
+              f"{r['high_water_bytes']} bytes (bound "
+              f"{r['high_water_bound']}: stored {r['stored']} + outside "
+              f"the layers {r['outside']} + 2 x a layer's {r['layer']}); "
+              f"collectives {r['collectives']} ({r['reduce_scatter']}); "
+              f"memory peak {r['peak_gb']} GB; largest final param "
+              f"difference {r['max_abs_param_diff']:.4g}; plan "
+              f"{r['tp_plan']} [{card}]")
+
+
+def fsdp_decode_config(reduced: bool = False):
+    from repro_torch.configs import get_config
+    cfg = get_config("falcon_mamba_7b", reduced=reduced)
+    if reduced:
+        return cfg
+    return dataclasses.replace(
+        cfg, n_layers=FSDP_DECODE_LAYERS,
+        layer_pattern=cfg.layer_pattern[:FSDP_DECODE_LAYERS])
+
+
+def fsdp_decode_run(params, cfg, device, rows=slice(None)) -> list:
+    """The logits of a prefill of ``FSDP_ROWS`` seeded prompts of
+    ``FSDP_PROMPT`` tokens, then of ``FSDP_DECODES`` one-position decode
+    forwards of seeded tokens, on the kernels (``use_kernel=True``), for
+    the prompts' ``rows``; on the host."""
+    from repro_torch.models import forward, init_cache
+    g = torch.Generator(device="cpu").manual_seed(24)
+    prompt = torch.randint(0, cfg.vocab_size, (FSDP_ROWS, FSDP_PROMPT),
+                           generator=g)[rows].to(device)
+    steps = torch.randint(0, cfg.vocab_size, (FSDP_ROWS, FSDP_DECODES),
+                          generator=g)[rows].to(device)
+    cache = init_cache(cfg, prompt.shape[0], FSDP_PROMPT + FSDP_DECODES,
+                       torch.float32, device)
+    out = []
+    with torch.no_grad():
+        lg, cache, _, _ = forward(params, cfg, {"tokens": prompt},
+                                  mode="prefill", cache=cache, cache_len=0,
+                                  use_kernel=True)
+        out.append(lg.to("cpu"))
+        for i in range(FSDP_DECODES):
+            lg, cache, _, _ = forward(params, cfg,
+                                      {"tokens": steps[:, i:i + 1]},
+                                      mode="decode", cache=cache,
+                                      cache_len=FSDP_PROMPT + i,
+                                      use_kernel=True)
+            out.append(lg.to("cpu"))
+    return out
+
+
+def fsdp_decode_worker(rank: int, port: int, out: str, device: str = "cuda",
+                       reduced: bool = False) -> None:
+    """One of two ranks of a (data 2, model 1) mesh on the one card
+    (gloo): falcon_mamba_7b's f32 params stored fsdp-sharded, each layer's
+    gathered as it runs (``dist.layer_gather``), ``fsdp_decode_run`` on
+    this rank's rows; prints one ``TP_RESULT::`` JSON line (the normwise
+    error of its logits against the one process's rows, its scan
+    launches, its high-water mark of stored plus gathered param bytes,
+    its collectives, its time and memory peak)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.dist import layer_gather as lg
+    from repro_torch.dist.sharded_train import (gather_plan, local,
+                                                step_layout)
+    from repro_torch.dist.sharding import (param_pspecs,
+                                           placements_from_pspecs,
+                                           shard_tree)
+    from repro_torch.kernels.mamba_scan import ops as scan_ops
+    from repro_torch.models import init_model
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=2)
+    try:
+        mesh = init_device_mesh(torch.device(device).type, (2, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = fsdp_decode_config(reduced)
+        params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                            device, torch.float32)
+        pl = placements_from_pspecs(param_pspecs(params, mesh, "fsdp"), mesh)
+        params = shard_tree(params, pl, mesh)
+        plan = gather_plan(step_layout(params, {"params": pl, "opt": {
+            "master": pl}}, mesh, cfg, 1), mesh)
+        shards = local(params)
+        gc.collect()
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        stored = sum(t.numel() * t.element_size() for t in _leaves(shards))
+        per = FSDP_ROWS // 2
+        counts = {}
+        _count_collectives(counts)
+        scan_ops.selective_scan_padded.launches = 0
+        lg.reset_peak()
+        _sync(device)
+        t0 = time.perf_counter()
+        with lg.gathering(plan, shards):
+            got = fsdp_decode_run(shards, cfg, device,
+                                  slice(rank * per, (rank + 1) * per))
+        _sync(device)
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = torch.load(Path(out) / "decode_one.pt")
+        err = max(float(torch.linalg.vector_norm(
+            g - w[rank * per:(rank + 1) * per])
+            / torch.linalg.vector_norm(w[rank * per:(rank + 1) * per]))
+            for g, w in zip(got, want))
+        print("TP_RESULT::" + json.dumps({
+            "rank": rank, "rows": [rank * per, (rank + 1) * per],
+            "normwise_err": err, "finite": all(
+                bool(torch.isfinite(g).all()) for g in got),
+            "scan_launches": scan_ops.selective_scan_padded.launches,
+            "stored_bytes": stored,
+            "high_water_bytes": stored + lg.gathered_bytes()["peak"],
+            "collectives": counts, "ms": ms,
+            "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                        if torch.device(device).type == "cuda" else None)}),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_runs(card, device: str = "cuda", reduced: bool = False) -> int:
+    """The two fsdp runs, their rank pairs at once: ``fsdp``, the
+    ``tp_train`` steps by two ranks of a (data 2, model 1) mesh that store
+    half of every param and gather each layer's as it runs, held against
+    ``tp_train``'s one process; and ``fsdp_decode``, falcon_mamba_7b at
+    full width and ``FSDP_DECODE_LAYERS`` layers in f32: this process's
+    prefill and decode forwards on the kernels, then the same by two
+    ranks on their rows, each layer gathered as it runs, each rank's
+    logits held within ``FSDP_DECODE_RTOL`` (normwise) of its rows of
+    this process's.  Returns the ranks' scan launches."""
+    from repro_torch.models import init_model
+    t_phase = time.perf_counter()
+    cfg = fsdp_decode_config(reduced)
+    out = OUT / "tp"
+    out.mkdir(parents=True, exist_ok=True)
+    params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                        device, torch.float32)
+    torch.save(fsdp_decode_run(params, cfg, device), out / "decode_one.pt")
+    del params
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    # four processes on the host's cores: two threads each
+    train = _start_ranks("tp_worker", out, device, reduced, "fsdp",
+                         threads=2)
+    decode = _start_ranks("fsdp_decode_worker", out, device, reduced,
+                          threads=2)
+    try:
+        fsdp = _ranks_results(train, "tp_worker")
+        ranks = _ranks_results(decode, "fsdp_decode_worker")
+    finally:
+        for p in train + decode:
+            p.kill()
+            p.wait()
+        for name in ("one.pt", "decode_one.pt"):
+            (out / name).unlink(missing_ok=True)
+    seconds = time.perf_counter() - t_phase
+    one = TP["one_process"]
+    loss_err, norm_err = _first_errors(fsdp, one["losses"],
+                                       one["grad_norms"])
+    want = (FSDP_DECODES + 1) * kernel_layers(cfg)["scan"]
+    TP["fsdp"] = {"ranks": fsdp, "first_loss_rel_err": loss_err,
+                  "first_grad_norm_rel_err": norm_err}
+    TP["fsdp_decode"] = {"config": f"{cfg.name} {cfg.n_layers} layers, d "
+                                   f"{cfg.d_model}, f32, {FSDP_ROWS} rows x "
+                                   f"{FSDP_PROMPT} prompt + {FSDP_DECODES} "
+                                   f"decode forwards, use_kernel=True",
+                         "ranks": ranks}
+    TP["fsdp_seconds"] = seconds
+    _print_train_ranks(fsdp, one["param_bytes"], card)
+    for r in ranks:
+        print(f"  fsdp_decode rank {r['rank']} of 2 (gloo, data 2 x model "
+              f"1), rows {r['rows']}: logits normwise err "
+              f"{r['normwise_err']:.3g} (limit {FSDP_DECODE_RTOL}); scan "
+              f"launches {r['scan_launches']} (expected {want}); stored + "
+              f"gathered high-water mark {r['high_water_bytes']} bytes "
+              f"(stored {r['stored_bytes']}); collectives "
+              f"{r['collectives']}; {r['ms']:.1f} ms; memory peak "
+              f"{r['peak_gb']} GB [{card}]")
+    print(f"  fsdp: first loss rel err {loss_err:.3g} (limit "
+          f"{TP_LOSS_RTOL}), first grad norm rel err {norm_err:.3g} (limit "
+          f"{TP_NORM_RTOL}); fsdp_decode: {TP['fsdp_decode']['config']}; "
+          f"both runs {seconds:.1f} s (limit {FSDP_PHASE_S}) [{card}]")
+    if not (loss_err <= TP_LOSS_RTOL and norm_err <= TP_NORM_RTOL
+            and all(r["high_water_bytes"] <= r["high_water_bound"]
+                    and r["collectives"].get("reduce_scatter", 0) > 0
+                    and np.isfinite(r["losses"]).all() for r in fsdp)):
+        raise AssertionError(f"fsdp: the two-rank run misses its bounds: "
+                             f"{json.dumps(TP['fsdp'])}")
+    if not all(r["normwise_err"] <= FSDP_DECODE_RTOL and r["finite"]
+               and r["scan_launches"] == want for r in ranks):
+        raise AssertionError(f"fsdp_decode: a rank misses its bounds: "
+                             f"{json.dumps(ranks)}")
+    if seconds > FSDP_PHASE_S:
+        raise AssertionError(f"fsdp: the two runs took {seconds:.1f} s "
+                             f"(limit {FSDP_PHASE_S})")
+    return sum(r["scan_launches"] for r in ranks)
 
 
 def check_aligned(ops, card) -> float:
@@ -3996,8 +4308,21 @@ def main() -> int:
         raise AssertionError(f"tp: kernels launched {runs['tp']}")
     gc.collect()
     torch.cuda.empty_cache()
+    # the decode path with each layer gathered per forward: the scan
+    # kernel in this process's forwards and in each rank's
+    for fn in fns.values():
+        fn.launches = 0
+    rank_scans = fsdp_runs(card)
+    runs["fsdp_decode"] = {k: fn.launches for k, fn in fns.items()}
+    runs["fsdp_decode"]["scan"] += rank_scans
+    if (not runs["fsdp_decode"]["scan"] or sum(runs["fsdp_decode"].values())
+            != runs["fsdp_decode"]["scan"]):
+        raise AssertionError(f"fsdp_decode: launches {runs['fsdp_decode']}")
+    gc.collect()
+    torch.cuda.empty_cache()
     print(f"phase tp: {time.perf_counter() - t0:.1f} s, launches "
-          f"{runs['tp']} (aligned entry {runs['aligned']}) [{card}]")
+          f"{runs['tp']} (aligned entry {runs['aligned']}, fsdp_decode "
+          f"{runs['fsdp_decode']}) [{card}]")
 
     # 10. report
     src = "src/repro_torch/csrc/decode_attention.cu"

@@ -1,6 +1,7 @@
 """repro_torch.dist — sharded execution: expert parallelism, sharding
 rules as DTensor placements, tensor parallelism on the model axis
-(``tensor_parallel``), the sharded train step, and elastic /
+(``tensor_parallel``), params gathered per layer (``layer_gather``), the
+sharded train step, and elastic /
 fault-tolerant training (a copy of the reference's framework-free
 ``dist/elastic.py``)."""
 from repro_torch.dist.elastic import (StepWatchdog, UpdateInterrupted,

@@ -20,9 +20,10 @@ operation here is the identity and the model code runs as before.  Inside
 it the model code (``models.transformer``) calls each block's unchanged
 body with a LOCAL spec (heads, kv heads or ``d_ff`` divided by the group's
 size) on the local shards, between the two operations.  Only
-``torch.distributed``'s ``all_reduce`` and ``all_gather`` are used (gloo
-takes both on CUDA tensors), on local tensors: no DTensor inside the
-forward, so the attention caches' in-place writes stay legal.
+``torch.distributed``'s ``all_reduce``, ``all_gather_into_tensor`` and
+``reduce_scatter_tensor`` are used (gloo takes all three on CUDA
+tensors), on local tensors: no DTensor inside the forward, so the
+attention caches' in-place writes stay legal.
 
 ``tp_plan(cfg, tp)`` decides, block by block, how a block runs:
 
@@ -55,6 +56,7 @@ import torch.distributed as dist
 
 from repro_torch.core.arch import (LAYER_ATTN, AttentionSpec, ArchConfig,
                                    FFNSpec)
+from repro_torch.kernels.decode_attention.ops import row_lens
 
 Tensor = torch.Tensor
 
@@ -64,9 +66,10 @@ TP, TP_KV, GATHERED = "tp", "tp_kv_gathered", "gathered"
 LOCAL = "local"        # this rank's model shard; gradient local
 FULL = "full"          # whole on every model rank, used alike by each
 PARTIAL = "partial"    # whole on every model rank, used by this rank's
-                       # heads only: gradient all-reduced over the group
+                       # heads only: gradient summed over the group
 SLICE = "slice"        # replicated in storage, sliced to this rank's
-                       # block for compute: gradient all-gathered
+                       # block for compute: gradient (zeros off the
+                       # block) summed over the group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,7 +99,8 @@ def model_group(group, size: int, rank: int, cache_dims=None,
     and backward.  ``cache_dims``: a tree shaped like the decode cache
     whose leaves give the dim the model axis shards (negative, so a
     layer's view reads it too) or None; a cache leaf not laid out as its
-    block reads it is gathered per layer.  ``whole``: the params are
+    block reads it is gathered once per layer, and only the positions
+    the forward wrote are exchanged afterwards.  ``whole``: the params are
     replicated over the group and every block runs whole (``gathered``),
     only the cache being sharded over it.  A no-op for ``group`` None or
     ``size`` 1."""
@@ -244,11 +248,22 @@ def all_reduce(t: Tensor, group, op=dist.ReduceOp.SUM) -> Tensor:
 
 def all_gather(t: Tensor, dim: int, group, size: int) -> Tensor:
     """The ``size`` ranks' blocks of ``t`` concatenated along ``dim`` in
-    rank order."""
-    t = t.contiguous()
-    parts = [torch.empty_like(t) for _ in range(size)]
-    dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    rank order: a new contiguous tensor, no view."""
+    first = dim % t.dim() == 0
+    x = t.contiguous() if first else t.movedim(dim, 0).contiguous()
+    out = x.new_empty((size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=group)
+    return out if first else out.movedim(0, dim).contiguous()
+
+
+def reduce_scatter(t: Tensor, dim: int, group, size: int) -> Tensor:
+    """``all_gather``'s transpose: ``t`` summed over the ``size`` ranks,
+    this rank's block of it along ``dim``."""
+    first = dim % t.dim() == 0
+    x = t.contiguous() if first else t.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=group)
+    return out if first else out.movedim(0, dim).contiguous()
 
 
 class _CopyToModel(torch.autograd.Function):
@@ -308,23 +323,27 @@ def local_attention(a: AttentionSpec, params: Dict, how: str, tp: int,
 
 
 def attention(how: Optional[str], a: AttentionSpec, body: Callable,
-              params: Dict, h: Tensor, cache=None, cache_dims=None
-              ) -> Tensor:
+              params: Dict, h: Tensor, cache=None, cache_dims=None,
+              writes=None) -> Tensor:
     """``body(params, spec, h, cache) -> (out, cache)`` (an attention body
     of ``models.attention``) as the plan says: whole (outside a model
     group, or ``gathered``), or on this rank's heads between
-    ``copy_to_model`` and ``reduce_from_model``."""
+    ``copy_to_model`` and ``reduce_from_model``.  ``writes``: ``(mode,
+    cache_len, ring)`` of the forward, which say the cache positions the
+    body writes (``_write_start``)."""
     if how is None:
         return body(params, a, h, cache)[0]
     mg = _MODEL
     if how == GATHERED:
-        work, done = _cache_enter(cache, cache_dims, None, a)
+        work, done = _cache_enter(cache, cache_dims, None, a, writes,
+                                  h.shape[1])
         out, new = body(params, a, h, work)
         done(new)
         return out
     la, params, kv0 = local_attention(a, params, how, mg.size, mg.rank)
     heads = None if a.kind == "mla" else (kv0, la.n_kv_heads)
-    work, done = _cache_enter(cache, cache_dims, heads, a)
+    work, done = _cache_enter(cache, cache_dims, heads, a, writes,
+                              h.shape[1])
     out, new = body(params, la, copy_to_model(h), work)
     done(new)
     return reduce_from_model(out)
@@ -338,16 +357,30 @@ def local_ffn(f: FFNSpec, tp: int) -> FFNSpec:
 # Caches under a model group (the dry run's prefill / decode cells)
 # ---------------------------------------------------------------------------
 
-def _cache_enter(cache, dims, heads, a: AttentionSpec):
+def _write_start(writes, b: int, n: int, s: int, device) -> Tensor:
+    """(b,) the first cache position each row's n new positions take
+    (they run on modulo s): prefill from 0; decode from each row's
+    ``cache_len`` (a scalar or (b,)), clamped to s - n as
+    ``attention._update_rows`` clamps it, or unclamped on the ring
+    buffer."""
+    mode, cache_len, ring = writes
+    if mode != "decode":
+        return torch.zeros((b,), dtype=torch.long, device=device)
+    start = row_lens(cache_len, b, device).long()
+    return start if ring else start.clamp(0, s - n)
+
+
+def _cache_enter(cache, dims, heads, a: AttentionSpec, writes, n: int):
     """(the layer cache the body reads and writes, finish(new cache)).
 
     A leaf already laid out as the body reads it (GQA heads sharded as
     the plan splits them) is used in place.  Any other leaf the model
     axis shards is all-gathered for the layer; the body then reads the
     whole of it (MLA's latent, a gathered block: every rank computes the
-    same update) or its heads (GQA), and afterwards this rank's stored
-    block is copied out of it; with heads, the heads every rank wrote are
-    all-gathered first, so the stored block holds all of them."""
+    same update) or its heads (GQA).  Afterwards only the n positions the
+    body wrote are read back: with heads, those positions of every rank's
+    heads are all-gathered (not the whole cache again); then this rank's
+    stored block is written at them."""
     if cache is None:
         return None, lambda new: None
     mg = _MODEL
@@ -363,27 +396,54 @@ def _cache_enter(cache, dims, heads, a: AttentionSpec):
         full = t if dim is None else all_gather(t, dim, mg.group, mg.size)
         if heads is None:
             work[k] = full
+            if dim is None:
+                continue                      # written in place
         else:
             work[k] = full.narrow(-2, heads[0], heads[1])
-        back.append((k, t, full, dim))
+        back.append((k, t, dim))
 
     def done(new):
-        for k, t, full, dim in back:
+        for k, t, dim in back:
+            b, s = t.shape[0], work[k].shape[1]
+            start = _write_start(writes, b, n, s, t.device)
+            rows = torch.arange(b, device=t.device)[:, None]
+            pos = (start[:, None] + torch.arange(n, device=t.device)) % s
+            piece = work[k][rows, pos]
             if heads is not None:
-                full = _publish_heads(work[k], full, heads, a)
-            if dim is not None:
-                n = t.shape[dim]
-                t.copy_(full.narrow(dim, mg.rank * n, n))
-            elif heads is not None:
-                t.copy_(full)
+                piece = _publish_heads(piece, heads, a)
+            _store(t, dim, piece, pos, start, s)
     return work, done
 
 
-def _publish_heads(mine: Tensor, full: Tensor, heads, a: AttentionSpec
-                   ) -> Tensor:
-    """``full`` with every kv head as the rank that computes it wrote it:
-    the ranks' head blocks all-gathered, each kv head taken from the
-    first rank that holds it."""
+def _store(t: Tensor, dim, piece: Tensor, pos: Tensor, start: Tensor,
+           s: int) -> None:
+    """Write ``piece`` (b, n, ...), the whole layer's values at positions
+    ``pos`` (b, n): the n from ``start`` modulo ``s``, into ``t``, this
+    rank's block of the layer's cache leaf (``dim``: the model axis's, or
+    None)."""
+    mg = _MODEL
+    b, n = pos.shape
+    rows = torch.arange(b, device=t.device)[:, None]
+    d = None if dim is None else dim % t.dim()
+    if d is None or d != 1:
+        if d is not None:
+            nb = t.shape[d]
+            piece = piece.narrow(d, mg.rank * nb, nb)
+        t[rows, pos] = piece
+        return
+    # the sequence dim: this rank holds positions [rank * sb, (rank+1) * sb)
+    sb = t.shape[1]
+    j = (mg.rank * sb + torch.arange(sb, device=t.device)[None]
+         - start[:, None]) % s
+    hit = (j < n).reshape(b, sb, *[1] * (t.dim() - 2))
+    t.copy_(torch.where(hit, piece[rows, j.clamp(max=n - 1)], t))
+
+
+def _publish_heads(mine: Tensor, heads, a: AttentionSpec) -> Tensor:
+    """Every kv head of ``mine`` (this rank's heads at the written
+    positions) as the rank that computes it wrote it: the ranks' head
+    blocks all-gathered, each kv head taken from the first rank that
+    holds it."""
     mg = _MODEL
     got = all_gather(mine, -2, mg.group, mg.size)
     if heads[1] * mg.size == a.n_kv_heads:

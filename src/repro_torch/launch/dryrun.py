@@ -17,12 +17,13 @@ sub-mesh.  Each cell runs ONCE, as rank 0: on rank 0's shards of the
 params, the optimizer state, the batch and the cache (fake tensors shaped
 by the cell's placements), through what a rank runs
 (``specs.rank_local_cell``): the sharded train step on local tensors, or
-the params gathered over the data axes and ``forward`` on the model
-axis's shards (``dist.tensor_parallel``; ``tp_plan``'s blocks are
-recorded).  A ``head``-mode cache is read in place where its heads split
-as the plan splits them; a ``seq``-mode cache (the ``opt`` decode
-variant), and any other leaf laid out otherwise, is all-gathered over the
-model axis per layer.  Per cell:
+``forward`` on the model axis's shards (``dist.tensor_parallel``;
+``tp_plan``'s blocks are recorded), each layer's params gathered as it
+runs (``dist.layer_gather``).  A ``head``-mode cache is read in place
+where its heads split as the plan splits them; a ``seq``-mode cache (the
+``opt`` decode variant), and any other leaf laid out otherwise, is
+all-gathered over the model axis once per layer, and only the positions
+the forward wrote are exchanged afterwards.  Per cell:
 
   placements  the cell's specs as DTensor placements on the mesh, each
               checked: sharded dims divisible, no axis used twice.

@@ -17,10 +17,11 @@ are ``dist.sharding`` PartitionSpec trees (``None``: replicated).
 local shards of ``args`` (fake tensors, shaped by the cell's placements,
 the ones its argument bytes are reckoned from), and a function that runs
 the cell as that rank: the sharded train step on local tensors
-(``dist.sharded_train.local_train_step``), or the params gathered over
-the data axes and ``forward`` on the model axis's shards under
-``dist.tensor_parallel.model_group`` (the cache's layout given, so a
-cache leaf not laid out as its block reads it is gathered per layer).
+(``dist.sharded_train.local_train_step``), or ``forward`` on the model
+axis's shards under ``dist.tensor_parallel.model_group`` (the cache's
+layout given, so a cache leaf not laid out as its block reads it is
+gathered per layer), each layer's params gathered over the data axes as
+it runs (``dist.layer_gather``).
 """
 from __future__ import annotations
 
@@ -312,6 +313,7 @@ def rank_local_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, cell,
     ``cell`` = (fn, args, in_specs, out_specs) as this rank of ``mesh``
     runs it (see the module docstring).  Every rank of the mesh's process group must call this,
     in the same order (it builds the batch's group)."""
+    from repro_torch.dist import layer_gather as lg
     from repro_torch.dist import sharded_train as st
     from repro_torch.dist import tensor_parallel as tp
     fn, args, in_ps, _ = cell
@@ -330,12 +332,13 @@ def rank_local_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, cell,
         mb = tokens.shape[-2]
         axes, _, blocks = st.batch_split(mesh, mb, policy)
         group = st.axes_group(mesh, axes)
+        plan = st.gather_plan(layout, mesh, axes)
 
         def run(params, opt, rows):
             return st.local_train_step(
                 params, opt, rows, cfg=cfg, opt_cfg=fn.keywords["opt_cfg"],
                 mesh=mesh, layout=layout, n_micro=n_micro, group=group,
-                blocks=blocks, model=model, remat=remat)
+                blocks=blocks, model=model, plan=plan, remat=remat)
         return run, local, tp_size
     layout = st.step_layout(args[0], {"params": p_pl,
                                       "opt": {"master": p_pl}}, mesh, cfg,
@@ -348,11 +351,13 @@ def rank_local_cell(cfg: ArchConfig, shape: ShapeSpec, mesh, cell,
         group = (mesh.get_group(axis), mesh.size(mesh.mesh_dim_names.index(
             axis)), mesh.get_local_rank(axis))
 
+    plan = st.gather_plan(layout, mesh)
+
     def run(params, *rest):
-        work = tree_map(lambda t, s, a, b: st.relayout(t, mesh, s, a, b),
-                        params, layout.shapes, layout.params, layout.work)
-        if group is None:
-            return fn(work, *rest)
-        with tp.model_group(*group, cache_dims=dims, whole=model is None):
-            return fn(work, *rest)
+        with lg.gathering(plan, params):
+            if group is None:
+                return fn(params, *rest)
+            with tp.model_group(*group, cache_dims=dims,
+                                whole=model is None):
+                return fn(params, *rest)
     return run, local, tp_size

@@ -47,6 +47,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.arch import (LAYER_ATTN, LAYER_HYBRID, LAYER_SSM,
                                    ArchConfig)
 from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.dist import layer_gather as lg
 from repro_torch.dist import tensor_parallel as tp
 from repro_torch.kernels.decode_attention.ops import row_lens
 from repro_torch.models.attention import (attention_decode, attention_full,
@@ -134,13 +135,23 @@ def remat_count(remat, count: int) -> int:
     return int(round(frac * count))
 
 
-def _call(fn, remat_layer: bool, *args):
+def _call(fn, remat_layer: bool, *args, plans=None):
     """``fn(*args)``, under activation checkpointing where
     ``remat_layer``: the layer's activations are not kept for the
-    backward pass but recomputed there (same values)."""
+    backward pass but recomputed there (same values).  ``plans``: one
+    ``layer_gather`` plan subtree (or None) per leading argument, whose
+    params are gathered inside the call; without remat, autograd keeps
+    the gathered leaves as their local slices (``layer_gather.saving``)."""
+    if plans is not None and all(p is None for p in plans):
+        plans = None
+    if plans is not None:
+        fn = lg.gathered(fn, plans)
     if remat_layer:
         return checkpoint(fn, *args, use_reentrant=False)
-    return fn(*args)
+    if plans is None:
+        return fn(*args)
+    with lg.saving():
+        return fn(*args)
 
 
 # ===========================================================================
@@ -321,7 +332,8 @@ def _attn_layer(lp, cfg: ArchConfig, x: Tensor, positions, cache, cache_len,
     x = x + tp.attention(tp.mode(cfg, "attn"), cfg.attention,
                          _attention_body(cfg, positions, cache_len, mode,
                                          use_kernel, block_tables, swa_ring),
-                         lp["attn"], h, cache, cache_dims)
+                         lp["attn"], h, cache, cache_dims,
+                         (mode, cache_len, swa_ring))
     if memory is not None and "cross" in lp:
         hc = rmsnorm(lp["ln_cross"], x, cfg.norm_eps)
         how = tp.mode(cfg, "cross")
@@ -368,7 +380,8 @@ def _hybrid_layer(lp, shared, cfg: ArchConfig, x: Tensor, positions,
     x = x + tp.attention(tp.mode(cfg, "shared_attn"), cfg.attention,
                          _attention_body(cfg, positions, cache_len, mode,
                                          use_kernel),
-                         shared["attn"], h, attn_cache, cache_dims)
+                         shared["attn"], h, attn_cache, cache_dims,
+                         (mode, cache_len, False))
     h2 = rmsnorm(shared["ln2"], x, cfg.norm_eps)
     return x + _mlp_block(cfg, "shared_ffn", shared["ffn"], h2), new_state
 
@@ -376,14 +389,17 @@ def _hybrid_layer(lp, shared, cfg: ArchConfig, x: Tensor, positions,
 def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
                        cfg: ArchConfig, shared: Optional[Dict], x: Tensor,
                        positions, cache_len, mode: str, use_kernel: bool,
-                       n_remat: int = 0, cache_dims=None
+                       n_remat: int = 0, cache_dims=None, plan=None
                        ) -> Tuple[Tensor, Optional[Dict]]:
     """Run an SSM or hybrid segment's layers; returns (x, the segment's
     new cache): new stacked states (the states given are read, not
     written) and, hybrid, the K/V given, written in place.  Prefill starts
     every layer from a zero state.  The first ``n_remat`` layers run under
-    activation checkpointing (no cache only)."""
+    activation checkpointing (no cache only).  ``plan``: the segment's
+    ``layer_gather`` plan (None: its params are used as given)."""
     states = []
+    sp, plan = lg.stacks(sp, plan)
+    plans = (plan,) if kind == LAYER_SSM else (plan, lg.sub("shared_attn"))
     for i, lp in enumerate(_unstack(sp, count)):
         lc = None if sc is None else _layer(sc, i)
         state = None if lc is None else segment_states(kind, lc)
@@ -394,13 +410,13 @@ def _recurrent_segment(kind: str, sp: Dict, sc: Optional[Dict], count: int,
             else segment_states(kind, cache_dims))
         if kind == LAYER_SSM:
             x, new_state = _call(_ssm_layer, i < n_remat, lp, cfg, x, state,
-                                 use_kernel)
+                                 use_kernel, plans=plans)
         else:
             x, new_state = _call(
                 _hybrid_layer, i < n_remat, lp, shared, cfg, x, positions,
                 state, None if lc is None else lc["attn"], cache_len, mode,
                 use_kernel, None if cache_dims is None
-                else cache_dims["attn"])
+                else cache_dims["attn"], plans=plans)
         states.append(None if new_state is None else local_state(new_state))
     if sc is None:
         return x, None
@@ -429,15 +445,39 @@ def encode(params, cfg: ArchConfig, frames: Tensor) -> Tensor:
     x = (frames.float() + _sinusoidal(pos, d)).to(frames.dtype)
     ep = params["encoder"]
 
-    def body(p, a, h, _):
-        return attention_full(p, a, h, pos, cfg.rope_theta, causal=False)
-    for lp in _unstack(ep["layers"], cfg.encoder.n_layers):
+    def layer(lp, x):
+        def body(p, a, h, _):
+            return attention_full(p, a, h, pos, cfg.rope_theta,
+                                  causal=False)
         h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
         x = x + tp.attention(tp.mode(cfg, "encoder_attn"), cfg.attention,
                              body, lp["attn"], h)
         h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-        x = x + _mlp_block(cfg, "encoder_ffn", lp["ffn"], h2)
-    return rmsnorm(ep["final_norm"], x, cfg.norm_eps)
+        return x + _mlp_block(cfg, "encoder_ffn", lp["ffn"], h2)
+    layers, plan = lg.stacks(ep["layers"], lg.sub("encoder", "layers"))
+    for lp in _unstack(layers, cfg.encoder.n_layers):
+        x = _call(layer, False, lp, x, plans=(plan,))
+    return _call(lambda p, x: rmsnorm(p, x, cfg.norm_eps), False,
+                 ep["final_norm"], x,
+                 plans=(lg.sub("encoder", "final_norm"),))
+
+
+def _embed(ep: Dict, cfg: ArchConfig, tokens: Tensor) -> Tensor:
+    if tp.mode(cfg, "embed") == tp.TP:
+        return tp.embed(ep["table"], tokens)
+    return embed(ep, tokens)
+
+
+def _head(hp: Dict, cfg: ArchConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
+    """(logits, the final-norm output) from ``hp``: the final norm and the
+    tied embedding or ``lm_head``."""
+    x = rmsnorm(hp["final_norm"], x, cfg.norm_eps)
+    if tp.mode(cfg, "head") == tp.TP:
+        # this rank's block of the vocabulary's columns
+        x = tp.copy_to_model(x)
+    if cfg.tie_embeddings:
+        return unembed_tied(hp["embed"], x), x
+    return lm_head(hp["lm_head"], x), x
 
 
 def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
@@ -472,10 +512,8 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
     if "embeds" in inputs:
         x = inputs["embeds"]
     else:
-        if tp.mode(cfg, "embed") == tp.TP:
-            x = tp.embed(params["embed"]["table"], inputs["tokens"])
-        else:
-            x = embed(params["embed"], inputs["tokens"])
+        x = _call(_embed, False, params["embed"], cfg, inputs["tokens"],
+                  plans=(lg.sub("embed"),))
     b, s = x.shape[0], x.shape[1]
     memory = None
     if cfg.encoder is not None:
@@ -499,29 +537,28 @@ def forward(params, cfg: ArchConfig, inputs: Dict, *, mode: str = "train",
         sc = None if cache is None else cache["segments"][si]
         cd = None if cache is None else tp.segment_cache_dims(si)
         n_remat = remat_count(remat, count) if cache is None else 0
+        plan = lg.sub("segments", si)
         if kind != LAYER_ATTN:
             x, sc = _recurrent_segment(kind, sp, sc, count, cfg, shared, x,
                                        positions, cache_len, mode,
-                                       use_kernel, n_remat, cd)
+                                       use_kernel, n_remat, cd, plan)
             new_segments.append(sc)
             continue
         new_segments.append(sc)
+        sp, plan = lg.stacks(sp, plan)
         for i, lp in enumerate(_unstack(sp, count)):
             x, layer_aux = _call(
                 _attn_layer, i < n_remat, lp, cfg, x, positions,
                 None if sc is None else _layer(sc, i), cache_len, mode,
                 use_kernel, block_tables, routing_override, memory, swa_ring,
-                cd)
+                cd, plans=(plan,))
             if layer_aux is not None:
                 auxes.append(layer_aux)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if tp.mode(cfg, "head") == tp.TP:
-        # this rank's block of the vocabulary's columns
-        x = tp.copy_to_model(x)
-    if cfg.tie_embeddings:
-        logits = unembed_tied(params["embed"], x)
-    else:
-        logits = lm_head(params["lm_head"], x)
+    head = {k: params[k] for k in ("final_norm", "embed" if
+                                   cfg.tie_embeddings else "lm_head")}
+    logits, x = _call(_head, False, head, cfg, x,
+                      plans=(None if lg.current() is None else
+                             {k: lg.sub(k) for k in head},))
     aux = (torch.stack(auxes).sum() if auxes
            else torch.zeros((), dtype=torch.float32, device=x.device))
     new_cache = None if cache is None else {"segments": new_segments}

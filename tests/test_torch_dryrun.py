@@ -11,11 +11,13 @@ the reference's record keys, skips ``long_500k`` where the reference
 does, and its argument bytes are the ones reckoned here; full-size
 stablelm_3b ``train_4k`` on the single-pod mesh runs as rank 0 (its
 per-device FLOPs x 256 are the whole step's, ``wo``'s row-parallel
-all-reduce comes once per layer per micro-batch forward, and the fsdp
-data-axis all-gather once per sharded leaf); every single-pod cell of
-stablelm_3b, granite_moe_3b_a800m, zamba2_1p2b and whisper_tiny records a
-peak that covers its arguments, or the time limit it hit (20 s here);
-DTensor's
+all-reduce comes once per layer per micro-batch forward, the fsdp
+data-axis all-gather of a layer's leaf each time the layer runs, and its
+gradient's reduce-scatter once per micro-batch); falcon_mamba_7b's
+``decode_32k`` cell stays within the reference's temp bytes; every
+single-pod cell of stablelm_3b, granite_moe_3b_a800m, zamba2_1p2b and
+whisper_tiny records a peak that covers its arguments, or the time limit
+it hit (20 s here); DTensor's
 blocks for a dim sharded by ("pod", "data") are JAX's (pod the major
 digit).
 """
@@ -157,12 +159,16 @@ def reduce_from_model(x):
 
 
 gathers = collections.Counter()
+data_shapes = collections.Counter()
 real_gather = tp.all_gather
 names = {id(single.get_group(a)): a for a in ("data", "model")}
 
 
 def all_gather(t, dim, group, size):
-    gathers[names.get(id(group), "other")] += 1
+    axis = names.get(id(group), "other")
+    gathers[axis] += 1
+    if axis == "data":
+        data_shapes[str(tuple(t.shape))] += 1
     return real_gather(t, dim, group, size)
 
 
@@ -174,16 +180,33 @@ fn, local, tp_size = rank_local_cell(cfg, shape, single, cell)
 got = dryrun.track_run(fn, local)      # here, so the recorders see it
 tp.reduce_from_model, tp.all_gather = real_reduce, real_gather
 specs = param_pspecs(params_abstract(cfg), single)
+from repro_torch.core.tree import leaves_with_paths
+from repro_torch.dist.sharding import local_shape
+layer_shapes = collections.Counter()
+other_shapes = collections.Counter()
+for (path, leaf), spec in zip(leaves_with_paths(params_abstract(cfg)),
+                              leaves(specs, is_spec)):
+    if any("data" in spec_axes(e) for e in spec):
+        local = local_shape(leaf.shape, spec, single)
+        if path[0] == "segments":
+            layer_shapes[str(local[1:])] += 1
+        else:
+            other_shapes[str(local)] += 1
 res["train"] = {"got": got, "tp_plan": tp.tp_plan(cfg, tp_size),
                 "argument_bytes": shard_bytes(cell[1], cell[2], single),
                 "callers": dict(callers),
                 "gathers": dict(gathers),
+                "data_shapes": dict(data_shapes),
+                "layer_shapes": dict(layer_shapes),
+                "other_shapes": dict(other_shapes),
                 "data_sharded_leaves": sum(
                     any("data" in spec_axes(e) for e in spec)
                     for spec in leaves(specs, is_spec))}
 # every single-pod cell of four archs, under a shorter limit (main()
-# leaves no process group behind)
+# leaves no process group behind), and falcon's decode cell
 dryrun.FLOP_LIMIT_S = 20
+assert dryrun.main(["--arch", "falcon_mamba_7b", "--shape", "decode_32k",
+                    "--mesh", "single", "--out", out]) == 0
 for arch in ("stablelm_3b", "granite_moe_3b_a800m", "zamba2_1p2b",
              "whisper_tiny"):
     assert dryrun.main(["--arch", arch, "--mesh", "single", "--out",
@@ -297,15 +320,46 @@ def test_probe_row_parallel_wo_all_reduces_once(fake_group_run):
 
 
 def test_probe_fsdp_wq_all_gathers_once(fake_group_run):
-    """The fsdp data-axis all-gather: once per step for each leaf the data
-    axis shards (``wq`` one of them), before the forward; over the model
-    axis only the sliced ``lm_head``'s gradient is gathered."""
+    """The fsdp data-axis all-gather of a layer's leaf (``wq`` one of
+    them): once each time the layer runs, the forward's and remat's
+    recompute, per micro-batch, never the whole stack; each such leaf's
+    gradient reduce-scattered once per micro-batch, as each leaf's
+    outside the layers.  Nothing is gathered over the model axis (the
+    sliced ``lm_head`` is narrowed, its gradient summed)."""
     _, res = fake_group_run
     r = res["train"]
-    assert r["gathers"]["data"] == r["data_sharded_leaves"] > 0
-    assert r["gathers"].get("model", 0) == 1
+    layer, other = r["layer_shapes"], r["other_shapes"]
+    assert sum(layer.values()) + sum(other.values()) == \
+        r["data_sharded_leaves"] > 0
+    assert "(160, 160)" in layer                  # wq's layer slice
+    assert set(r["data_shapes"]) == set(layer) | set(other)
+    for shape, got in r["data_shapes"].items():
+        want = layer.get(shape, 0) * N_LAYERS * N_MICRO * 2 + \
+            other.get(shape, 0) * N_MICRO
+        # a leaf outside the layers is gathered again where the backward
+        # unpacks it
+        assert got == want if shape not in other else got >= want, shape
+    assert r["gathers"].get("model", 0) == 0
     assert r["got"]["collective_counts"]["all_gather"] == \
-        r["data_sharded_leaves"] + 1
+        r["gathers"]["data"]
+    assert r["got"]["collective_counts"]["reduce_scatter"] == N_MICRO * (
+        N_LAYERS * sum(layer.values()) + sum(other.values()))
+
+
+def test_falcon_decode_gathers_one_layer_at_a_time(fake_group_run):
+    """falcon_mamba_7b ``decode_32k`` on the single-pod mesh: its Mamba
+    blocks run whole, gathered over both axes one layer at a time, so a
+    device's temp bytes stay within the reference's dry run's 1.12e9
+    (XLA on the CPU, 256 host devices) where gathering the whole tree
+    first held all 7e9 parameters (18.06e9)."""
+    out, _ = fake_group_run
+    rec = json.loads((out / "falcon_mamba_7b__decode_32k__singlepod.json")
+                     .read_text())
+    assert rec["status"] == "ok"
+    mem = rec["memory"]
+    assert mem["argument_bytes"] <= mem["peak_bytes"]
+    assert mem["temp_bytes"] <= 1.12e9
+    assert rec["collective_counts"]["all_gather"] > 64
 
 
 def test_train_flops_per_device_are_the_global_steps_share(fake_group_run):
