@@ -32,8 +32,10 @@ Phases, in order; any failure exits non-zero:
                 a window, both modes; then
                 mixtral's window of 4096 at lengths 4095, 4096, 4097, 4352
                 and 4600 in a 4608-position cache (tiles skipped below
-                the window); the executed kv tiles must equal
-                slack_report's.  The fused grouped MoE FFN against its
+                the window); and the reduced geometries the examples
+                serve, dh 16: stablelm_3b's (4, 4) and llada_mini_like's
+                (4, 2), n in {1, 9, 13, 16, 17}, both modes; the executed
+                kv tiles must equal slack_report's.  The fused grouped MoE FFN against its
                 plain version at granite shapes (E 40, top-8, d 1536, f
                 512, swiglu) for T in {1, 4, 16, 40, 41, 256} under
                 balanced, skewed and router routing, every row on one
@@ -42,7 +44,9 @@ Phases, in order; any failure exits non-zero:
                 512) at T = 4 and at its serving T's: decode 4 x (w + 1)
                 = 64 and 68, prefill 4 x 48 = 192 and the 64-position
                 bucket's 256, and mixtral_8x22b's (E 8, top-2, d 6144, f
-                16384) at T = 4 and 256;
+                16384) at T = 4 and 256, and reduced llada_mini_like's
+                (E 16, top-2, d 64, f 32: what quickstart runs) at T = 8
+                and 16;
                 executed blocks must equal sum ceil(g_e / token_block), and
                 a row must give bitwise the same output at T = 1 and T = 41
                 (junk in the padding rows).
@@ -219,6 +223,36 @@ Phases, in order; any failure exits non-zero:
                 lr 1e-2 (last loss < 0.85 x the first), then --steps 60 on
                 the same directory (resumes at 50), and the final
                 checkpoint restored bitwise equal to the state in memory.
+  7b. serve_ckpt — (b)'s trained full-size stablelm_3b params (the AdamW
+                state freed) written by ``checkpoint.save`` (5.6 GB) and
+                served through ``repro_torch.launch.serve --ckpt-dir``:
+                8 requests of 48-token prompts x 32 tokens, 4 slots, paged
+                greedy on the captured step.  Held: the served params
+                bitwise the trained ones; each request's first token the
+                argmax of one eager prefill of the trained params on its
+                prompt (a top-2 gap <= GAP_TOL excepted); paged-attention
+                launches = 32 layers x (decode forwards + prefix-hit
+                forwards), no other kernel.  Prints the save and restore
+                seconds and tok/s, then deletes the checkpoint.  Then the
+                train CLI's tiny checkpoint (params and AdamW state)
+                served with ``--algorithm greedy --batch 2``: 2 rows x 32
+                tokens, dense launches = layers x 31 decode forwards.
+  7c. examples — the four ``repro_torch.examples`` drivers in-process on
+                the card: ``nfp_survey`` (its H100 rows equal
+                ``predict_model`` on ``core.hardware.H100``);
+                ``quickstart`` (MoE launches = 2 layers x 2 forwards on
+                reduced llada_mini_like, whose MoE shape the kernel phase
+                holds elementwise; its decode logits, under the kernel
+                run's routing, held normwise within 1e-1 against the same
+                engine with the kernels' plain versions swapped in on the
+                card and against ``use_kernel=False``, the XLA path with h
+                rounded to bf16); ``serve_parallel_decode`` (speculative
+                lossless against AR, dense attention launches > 0, each
+                mode's tokens per forward and wall time); ``train_lm`` at
+                its 100M config (75.5e6 parameters), 40 steps with
+                checkpoints at 20 and 40, then --steps 60 on the same
+                directory: resumes at 40, runs 20, the last loss below the
+                first; the median synchronized step and tokens/s.
   8. dist     — sharded execution on a one-rank NCCL group
                 (``tcp://127.0.0.1:<free port>``).  (a) ``dist.ep_moe_ffn``
                 (dispatch, batched expert products, combine, two
@@ -399,6 +433,7 @@ MAX_LEN = 256
 GRANITE_MOE = (40, 8, 1536, 512)
 LLADA_MOE = (256, 8, 2048, 512)
 MIXTRAL_MOE = (8, 2, 6144, 16384)
+LLADA_TINY_MOE = (16, 2, 64, 32)        # the reduced config's
 # falcon_mamba_7b's scan: (d_inner, d_state)
 FALCON_SCAN = (8192, 16)
 # decode-attention geometries (h, kv, dh) of mixtral_8x22b, starcoder2_3b,
@@ -412,6 +447,8 @@ NEW_GEOMETRIES = {"mixtral_8x22b": (48, 8, 128),
                   "phi3_vision_4p2b": (32, 32, 96),
                   "zamba2_1p2b": (32, 32, 64),
                   "whisper_tiny": (6, 6, 64)}
+# the reduced configs' geometries, which the examples serve on the card
+REDUCED_GEOMETRIES = {"stablelm_3b": (4, 4, 16), "llada_mini_like": (4, 2, 16)}
 # mixtral_8x22b's sliding window and its long-context runs: 4352-token
 # prompts (256 positions past the window) in a 4608-position cache
 MIXTRAL_WINDOW = 4096
@@ -618,6 +655,13 @@ def check_kernels(ops) -> dict:
                 for window in (None, 48):
                     run(paged, n, h, kv, dh, [0, 37, 150, MAX_LEN - n],
                         window, "fragmented" if paged else "")
+    # the reduced geometries the examples serve on the card (dh 16):
+    # verify blocks of 9, diffusion blocks of 13, quickstart's N = 16
+    for h, kv, dh in REDUCED_GEOMETRIES.values():
+        for paged in (False, True):
+            for n in (1, 9, 13, 16, 17):
+                run(paged, n, h, kv, dh, [0, 8, 37, MAX_LEN - n], None,
+                    "fragmented" if paged else "")
     # mixtral's window of 4096 past the window, in a 4608-position cache:
     # the skip rule's lower bound drops the first tiles (at 4352, 2 dense
     # tiles or 16 pages), so fewer tiles run than the grid holds
@@ -808,6 +852,14 @@ def check_moe(moe_ops, moe) -> float:
     llada = moe_weights(LLADA_MOE[0], LLADA_MOE[2], LLADA_MOE[3], seed=3)
     for t in (4, 64, 68, 192, 256):
         cases.append(("llada_mini_like", llada, LLADA_MOE[1], t, "router"))
+    # llada_mini_like reduced (E 16, top-2, d 64, f 32: one partial
+    # column slice in each phase, a reduction shorter than a stage):
+    # quickstart's prefill of 8 tokens and its decode forward of 16
+    tiny = moe_weights(LLADA_TINY_MOE[0], LLADA_TINY_MOE[2],
+                       LLADA_TINY_MOE[3], seed=11)
+    for t in (8, 16):
+        cases.append(("llada_mini_like reduced", tiny, LLADA_TINY_MOE[1], t,
+                      "router"))
     # mixtral_8x22b: E 8 top-2 at d 6144, f 16384 (32 f tiles), decode
     # (4 slots) and prefill
     mixtral = moe_weights(MIXTRAL_MOE[0], MIXTRAL_MOE[2], MIXTRAL_MOE[3],
@@ -2880,13 +2932,15 @@ def cli_runs():
     return out
 
 
-def run_cli(argv) -> None:
+def run_cli(argv) -> dict:
+    """``python -m repro_torch.launch.serve`` in-process; returns what
+    ``serve`` served."""
     from repro_torch.launch.serve import build_parser, check_args, serve
     (OUT / "calibration").mkdir(parents=True, exist_ok=True)
     ap = build_parser()
     args = ap.parse_args(argv)
     check_args(ap, args)
-    serve(args)
+    return serve(args)
 
 
 def report_card(card) -> None:
@@ -3023,10 +3077,11 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def train_full(card) -> None:
+def train_full(card) -> dict:
     """(b) 20 steps of full-size stablelm_3b through ``train_step``, then
     the step decomposed (its gradients, then ``adamw_update``: what
-    ``train_step`` runs for n_micro > 1) and with remat False."""
+    ``train_step`` runs for n_micro > 1) and with remat False.  Returns
+    the trained params (the AdamW state is freed on return)."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_pipeline
     from repro_torch.models import init_model
@@ -3109,7 +3164,7 @@ def train_full(card) -> None:
     except torch.cuda.OutOfMemoryError:
         print(f"train remat False: does not fit in the card's memory "
               f"[{card}]")
-        return
+        return params
     nr_s = statistics.median(nr_times[1:])
     nr_peak = torch.cuda.max_memory_allocated() / 1e9
     TRAIN.update(no_remat_ms=1e3 * nr_s, no_remat_peak_gb=nr_peak)
@@ -3119,6 +3174,7 @@ def train_full(card) -> None:
           f"True costs {step_s / nr_s - 1:.1%} more time; memory peak "
           f"{nr_peak:.2f} GB against {peak:.2f} [{card}]")
     train_profile("remat False", nr_step, params, opt, batches[-1], card)
+    return params
 
 
 def train_profile(label, step, params, opt, batch, card, top=8) -> None:
@@ -3184,6 +3240,319 @@ def train_cli(card) -> None:
           f"[{card}]")
     if not same or meta["step"] != 60:
         raise AssertionError("cli train: the final checkpoint differs")
+
+
+# ---------------------------------------------------------------------------
+# phase 7b: serve_ckpt — serving the trained weights from a checkpoint
+# ---------------------------------------------------------------------------
+
+SERVE_CKPT_ARGV = ["--arch", "stablelm_3b", "--requests", "8", "--slots",
+                   "4", "--prompt-len", "48", "--tokens", "32",
+                   "--serve-mode", "greedy", "--kv-block-size", "16"]
+SERVE_CKPT = {}
+
+
+def serve_ckpt(params, fns, card) -> dict:
+    """Save full-size stablelm_3b's trained ``params`` with
+    ``checkpoint.save``, serve them through the serve CLI's ``--ckpt-dir``
+    (paged greedy, 8 requests): (a) the params it served are bitwise the
+    trained ones; (b) each request's first token is the argmax of one eager
+    prefill of the trained params on its prompt (up to a GAP_TOL
+    near-tie); (c) paged-attention launches = layers x decode-shape
+    forwards.  Then serve the tiny checkpoint of the train CLI phase
+    (``params`` + ``opt``) with ``--algorithm greedy --batch 2``.  Returns
+    the launches of both runs (``fns``: the kernel wrappers by short
+    name; ``serve`` counts each run from 0)."""
+    import shutil
+    from repro_torch.checkpoint import save
+    from repro_torch.configs import get_config
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config("stablelm_3b")
+    ckpt = OUT / "serve_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    _, save_s = _timed(lambda: save(str(ckpt), TRAIN_STEPS,
+                                    {"params": params},
+                                    {"step": TRAIN_STEPS}))
+    argv = SERVE_CKPT_ARGV + ["--ckpt-dir", str(ckpt)]
+    print("cli serve_ckpt: python -m repro_torch.launch.serve "
+          + " ".join(argv), flush=True)
+    out = run_cli(argv)
+    launches = {k: fn.launches for k, fn in fns.items()}
+    shutil.rmtree(ckpt, ignore_errors=True)
+    same = all(a.dtype == b.dtype and torch.equal(a, b) for a, b in
+               zip(_leaves(out["params"]), _leaves(params)))
+    if not same or len(list(_leaves(out["params"]))) != len(
+            list(_leaves(params))):
+        raise AssertionError("serve_ckpt: the served params differ from "
+                             "the trained ones")
+    # (b) one eager prefill of all 8 prompts
+    prompts, streams = out["prompts"], out["streams"]
+    eng = DecodeEngine(cfg, params, batch=len(prompts), max_len=MAX_LEN,
+                       device="cuda", capture=False)
+    rids = sorted(prompts)
+    logits = eng.prefill(torch.as_tensor(np.stack([prompts[r] for r in rids]),
+                                         device="cuda")).float()
+    first = torch.argmax(logits, dim=-1).tolist()
+    gaps = top2_gap(logits).tolist()
+    for i, r in enumerate(rids):
+        if streams[r][0] != first[i] and gaps[i] > GAP_TOL:
+            raise AssertionError(f"serve_ckpt: request {r}'s first token "
+                                 f"{streams[r][0]} is not the prefill's "
+                                 f"argmax {first[i]} (top-2 gap "
+                                 f"{gaps[i]:.4g})")
+    parted = [r for i, r in enumerate(rids) if streams[r][0] != first[i]]
+    del eng, logits
+    # (c)
+    loop, s = out["loop"], out["stats"]
+    hits = sum(1 for e in loop.engine.prefill_log[loop._prefill_log_start:]
+               if e.get("cached_tokens", 0) > 0)
+    want = kernel_layers(cfg)["attn"] * (s["forwards"] + hits)
+    if launches != {"dense": 0, "paged": want, "moe": 0, "scan": 0}:
+        raise AssertionError(f"serve_ckpt: attention launches {launches}, "
+                             f"expected paged {want} ({cfg.n_layers} layers "
+                             f"x {s['forwards']} forwards + {hits} "
+                             f"prefix-hit forwards)")
+    tok_s = s["tokens"] / out["seconds"]
+    SERVE_CKPT.update(gb=n_bytes / 1e9, save_s=save_s,
+                      restore_s=out["restore_s"], tok_s=tok_s)
+    print(f"serve_ckpt {cfg.name}: {n_bytes / 1e9:.2f} GB of trained bf16 "
+          f"params saved in {save_s:.1f} s ({n_bytes / 1e9 / save_s:.2f} "
+          f"GB/s), restored onto the card in {SERVE_CKPT['restore_s']:.1f} "
+          f"s; served bitwise the trained params: {same}; first tokens "
+          f"equal an eager prefill's argmax for "
+          f"{len(rids) - len(parted)} of {len(rids)} requests (the rest at "
+          f"top-2 gaps <= {GAP_TOL:.4g}); {s['requests']} requests, "
+          f"{s['tokens']} tokens, {s['forwards']} forwards in "
+          f"{out['seconds']:.3f} s, {tok_s:.1f} tok/s; launches {launches} "
+          f"[{card}]")
+    del out, loop
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the train CLI phase's tiny checkpoint: params and AdamW state
+    for fn in fns.values():
+        fn.launches = 0
+    tokens = 32
+    argv = ["--arch", "stablelm_3b", "--tiny", "--ckpt-dir",
+            str(OUT / "train_ckpt"), "--algorithm", "greedy", "--batch", "2",
+            "--tokens", str(tokens)]
+    print("cli serve_ckpt tiny: python -m repro_torch.launch.serve "
+          + " ".join(argv), flush=True)
+    tiny = run_cli(argv)
+    tiny_cfg = get_config("stablelm_3b", reduced=True)
+    tiny_launches = {k: fn.launches for k, fn in fns.items()}
+    want = {"dense": kernel_layers(tiny_cfg)["attn"] * (tokens - 1),
+            "paged": 0, "moe": 0, "scan": 0}
+    streams = tiny["streams"]
+    if streams.shape != (2, tokens) or tiny_launches != want:
+        raise AssertionError(f"serve_ckpt tiny: streams {streams.shape}, "
+                             f"launches {tiny_launches}, expected {want}")
+    print(f"serve_ckpt {tiny_cfg.name} from the train CLI's checkpoint: 2 "
+          f"rows x {tokens} tokens in {tiny['seconds']:.3f} s, launches "
+          f"{tiny_launches} [{card}]")
+    return {"serve_ckpt": launches, "serve_ckpt_tiny": tiny_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: examples — the four drivers of repro_torch.examples
+# ---------------------------------------------------------------------------
+
+EXAMPLES = {}
+TRAIN_LM_STEPS = (40, 60)
+TRAIN_LM_EVERY = 20
+
+
+def example_nfp_survey(card) -> None:
+    """Its H100 rows equal ``predict_model`` on ``core.hardware.H100``."""
+    from repro_torch.core import GranularitySpec, predict_model
+    from repro_torch.core.hardware import H100
+    from repro_torch.configs import get_config
+    from repro_torch.examples import nfp_survey
+    rows, dt = _timed(lambda: nfp_survey.main([]))
+    h100 = [r for r in rows if r[1] == "h100"]
+    for arch, _, b, ell, p in h100:
+        cfg = get_config(arch)
+        want = predict_model(cfg, H100, GranularitySpec.for_backend(
+            cfg.ffn.n_experts), b, ell)
+        if (p.n_max, p.limiting, p.n_idle) != (want.n_max, want.limiting,
+                                               want.n_idle):
+            raise AssertionError(f"nfp_survey {arch} b={b} L={ell}: {p}")
+    EXAMPLES["nfp_survey"] = {"s": dt, "rows": len(rows)}
+    print(f"example nfp_survey: {len(rows)} rows, the {len(h100)} H100 rows "
+          f"equal predict_model on core.hardware.H100; {dt:.2f} s [{card}]")
+
+
+@contextlib.contextmanager
+def plain_kernels(ops, moe_ops):
+    """Inside the block the model's dense decode attention and its MoE FFN
+    call their kernels' plain versions (``decode_attention_ref``,
+    ``grouped_ffn_ref``) on the card's tensors, in place of the kernels:
+    the same function on the same inputs."""
+    import repro_torch.models.attention as attn_mod
+    kernel_attn, kernel_moe = (attn_mod.decode_attention_ragged,
+                               moe_ops.grouped_ffn_padded)
+
+    def moe_plain(*args, blocks=None, **kw):
+        return moe_ops.grouped_ffn_ref(*args, **kw)
+    attn_mod.decode_attention_ragged = ops.decode_attention_ref
+    moe_ops.grouped_ffn_padded = moe_plain
+    try:
+        yield
+    finally:
+        attn_mod.decode_attention_ragged = kernel_attn
+        moe_ops.grouped_ffn_padded = kernel_moe
+
+
+class RouteTape:
+    """Inside the block ``models.moe.route_topk`` records each call's
+    (weights, idx, probs), or, given a tape, returns its calls in order
+    instead of routing (the same experts and weights in another run)."""
+
+    def __init__(self, moe_mod, replay=None):
+        self.mod, self.replay, self.calls = moe_mod, replay, []
+
+    def __enter__(self):
+        self.inner = self.mod.route_topk
+
+        def route(router_w, x, k):
+            out = (self.inner(router_w, x, k) if self.replay is None
+                   else self.replay[len(self.calls)])
+            self.calls.append(out)
+            return out
+        self.mod.route_topk = route
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.route_topk = self.inner
+
+
+def example_quickstart(ops, moe_ops, card) -> None:
+    """The tiny llada forwards reach the MoE kernel (its shapes are held
+    elementwise against the plain version in the kernel phase,
+    ``LLADA_TINY_MOE``).  The decode logits are held normwise within
+    MOE_FORWARD_RTOL, as ``check_forward`` holds an MoE forward, under the
+    kernel run's routing (``RouteTape``): against the same engine through
+    the kernels' plain versions on the card, and against the engine with
+    ``use_kernel=False`` (the reference's XLA path: bf16 expert products, h
+    rounded to bf16)."""
+    from repro_torch.examples import quickstart
+    from repro_torch.models import moe
+    from repro_torch.serving import DecodeEngine
+    before = moe_ops.grouped_ffn_padded.launches
+    with RouteTape(moe) as tape:
+        out, dt = _timed(lambda: quickstart.main([]))
+    launches = moe_ops.grouped_ffn_padded.launches - before
+    small = out["small"]
+    want = kernel_layers(small)["moe"] * 2     # prefill + decode
+    if launches != want or not out["use_kernel"]:
+        raise AssertionError(f"quickstart: MoE kernel launches {launches}, "
+                             f"expected {want}")
+
+    def logits(use_kernel):
+        with RouteTape(moe, tape.calls):
+            eng = DecodeEngine(small, out["params"], batch=1,
+                               max_len=quickstart.MAX_LEN, device="cuda",
+                               use_kernel=use_kernel)
+            eng.prefill(torch.as_tensor(out["prompt"], device="cuda"))
+            return eng.decode_step(torch.as_tensor(out["draft"],
+                                                   device="cuda")).float()
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm())
+    got = out["logits"].float()
+    with plain_kernels(ops, moe_ops):
+        ref = logits(True)
+    xla = logits(False)
+    errs = {"plain": rel(got, ref), "no_kernel": rel(got, xla)}
+    if not torch.isfinite(got).all() or max(errs.values()) > MOE_FORWARD_RTOL:
+        raise AssertionError(f"quickstart: kernel logits leave the plain "
+                             f"forwards (relative errors {errs})")
+    EXAMPLES["quickstart"] = {
+        "s": dt, "budget": out["budget"], "n": out["n"],
+        "moe_launches": launches, "logits_rel_err": errs,
+        "logits_max_abs_err": float((got - ref).abs().max())}
+    print(f"example quickstart: budget {out['budget']}, N {out['n']}, "
+          f"{launches} MoE kernel launches (d 64, f 32, E 16, top-2); "
+          f"logits {tuple(got.shape)} under the kernel run's routing, "
+          f"relative error against the kernels' plain versions "
+          f"{errs['plain']:.4g} (max abs err "
+          f"{float((got - ref).abs().max()):.4g}) and against "
+          f"use_kernel=False {errs['no_kernel']:.4g} (limit "
+          f"{MOE_FORWARD_RTOL}); {dt:.2f} s [{card}]")
+
+
+def example_serve_parallel_decode(ops, card) -> None:
+    """Speculative is lossless against AR on the attention kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.examples import serve_parallel_decode as spd
+    before = ops.decode_attention_ragged.launches
+    out, dt = _timed(lambda: spd.main([]))
+    launches = ops.decode_attention_ragged.launches - before
+    layers = kernel_layers(get_config(spd.ARCH, reduced=True))["attn"]
+    if not out["lossless"] or not launches or launches % layers:
+        raise AssertionError(f"serve_parallel_decode: lossless "
+                             f"{out['lossless']}, attention launches "
+                             f"{launches}")
+    modes = {"ar": (out["ar"]["forwards"], out["ar"]["seconds"])}
+    for mode in ("speculative", "diffusion"):
+        modes[mode] = (out[mode]["stats"]["forwards"], out[mode]["seconds"])
+    EXAMPLES["serve_parallel_decode"] = {
+        "s": dt, "attn_launches": launches,
+        **{f"{m}_tok_per_fwd": spd.TOKENS / f for m, (f, _) in modes.items()},
+        **{f"{m}_s": t for m, (_, t) in modes.items()}}
+    print(f"example serve_parallel_decode: lossless {out['lossless']}, "
+          f"{launches} dense attention launches; " + ", ".join(
+              f"{m} {spd.TOKENS / f:.2f} tok/fwd in {t:.3f} s"
+              for m, (f, t) in modes.items()) + f"; {dt:.2f} s [{card}]")
+
+
+def example_train_lm(card) -> None:
+    """The 100M config for 40 steps (checkpoints at 20 and 40), then to 60
+    from the same directory: resumes at 40, runs 20, the loss falls."""
+    import shutil
+    from repro_torch.examples import train_lm
+    d = OUT / "train_lm"
+    shutil.rmtree(d, ignore_errors=True)
+    runs = []
+    t0 = time.perf_counter()
+    for steps in TRAIN_LM_STEPS:
+        argv = ["--steps", str(steps), "--ckpt-every", str(TRAIN_LM_EVERY),
+                "--ckpt-dir", str(d)]
+        print("example train_lm: python -m repro_torch.examples.train_lm "
+              + " ".join(argv), flush=True)
+        runs.append(train_lm.main(argv))
+    dt = time.perf_counter() - t0
+    first, second = runs
+    shutil.rmtree(d, ignore_errors=True)
+    if (second["start"] != TRAIN_LM_STEPS[0]
+            or len(second["losses"]) != TRAIN_LM_STEPS[1] - TRAIN_LM_STEPS[0]
+            or not second["losses"][-1] < first["losses"][0]):
+        raise AssertionError(f"train_lm: resumed at {second['start']} with "
+                             f"{len(second['losses'])} steps, losses "
+                             f"{first['losses'][0]:.4f} -> "
+                             f"{second['losses'][-1]:.4f}")
+    # steady steps: the first two of each run compile and warm up
+    steady = first["step_s"][2:] + second["step_s"][2:]
+    step_s = statistics.median(steady)
+    tokens = 8 * 256
+    EXAMPLES["train_lm"] = {"s": dt, "params": first["n_params"],
+                            "step_ms": 1e3 * step_s,
+                            "tokens_s": tokens / step_s,
+                            "loss_first": first["losses"][0],
+                            "loss_last": second["losses"][-1]}
+    print(f"example train_lm {first['cfg'].name}: {first['n_params']:.4g} "
+          f"parameters, batch 8 x 256, n_micro 2; loss "
+          f"{first['losses'][0]:.4f} -> {second['losses'][-1]:.4f}; resumed "
+          f"at step {second['start']} and ran {len(second['losses'])}; "
+          f"median step (synchronized) {1e3 * step_s:.1f} ms, "
+          f"{tokens / step_s:.0f} tokens/s; both runs {dt:.1f} s [{card}]")
+
+
+def examples_phase(ops, moe_ops, card) -> None:
+    example_nfp_survey(card)
+    example_quickstart(ops, moe_ops, card)
+    example_serve_parallel_decode(ops, card)
+    example_train_lm(card)
 
 
 # ---------------------------------------------------------------------------
@@ -4263,7 +4632,7 @@ def main() -> int:
     train_check(card)
     gc.collect()
     torch.cuda.empty_cache()
-    train_full(card)
+    trained = train_full(card)
     gc.collect()
     torch.cuda.empty_cache()
     train_cli(card)
@@ -4272,6 +4641,34 @@ def main() -> int:
         raise AssertionError(f"train: kernels launched {runs['train']}")
     print(f"phase train: {time.perf_counter() - t0:.1f} s, launches "
           f"{runs['train']} [{card}]")
+
+    # 7b. serve_ckpt: the trained full-size params served from a
+    # checkpoint (paged attention), then the train CLI's tiny checkpoint
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    runs.update(serve_ckpt(trained, fns, card))
+    del trained
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase serve_ckpt: {time.perf_counter() - t0:.1f} s, launches "
+          f"{runs['serve_ckpt']} (tiny {runs['serve_ckpt_tiny']}), device "
+          f"memory peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+          f"[{card}]")
+
+    # 7c. examples: the MoE kernel (quickstart), dense attention
+    # (serve_parallel_decode), training (train_lm: no kernel)
+    t0 = time.perf_counter()
+    for fn in fns.values():
+        fn.launches = 0
+    examples_phase(ops, moe_ops, card)
+    runs["examples"] = {k: fn.launches for k, fn in fns.items()}
+    if (not runs["examples"]["moe"] or not runs["examples"]["dense"]
+            or runs["examples"]["paged"] or runs["examples"]["scan"]):
+        raise AssertionError(f"examples: launches {runs['examples']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase examples: {time.perf_counter() - t0:.1f} s, launches "
+          f"{runs['examples']} [{card}]")
 
     # 8. dist: the MoE kernel runs in (a)'s reference path
     t0 = time.perf_counter()
@@ -4386,6 +4783,8 @@ def main() -> int:
         "staircase_ms": {n: ms for n, (ms, _) in
                          scan_times["staircase"].items()},
         "launch_configurations": ANALYSIS["mamba_scan"]})
+    print("examples summary: " + json.dumps(EXAMPLES))
+    print("serve_ckpt summary: " + json.dumps(SERVE_CKPT))
     print("dist summary: " + json.dumps(DIST))
     print("tp summary: " + json.dumps(TP))
     print(json.dumps({"kernels": kernels}))

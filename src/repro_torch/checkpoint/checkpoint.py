@@ -125,7 +125,8 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
             shardings: Any = None, mesh: Any = None) -> Tuple[Any, Dict]:
     """Restore into the structure of ``target_tree`` (the stored dtypes,
     bf16 bit for bit) on ``device``, by default each target leaf's own;
-    returns (tree, the metadata saved with it).
+    returns (tree, the metadata saved with it).  A target leaf the
+    checkpoint lacks, or holds at another shape, raises ValueError.
 
     ``shardings``: a tree of placement lists matching ``target_tree``, on
     the ``DeviceMesh`` ``mesh`` (``dist.sharding.placements_from_pspecs``):
@@ -144,7 +145,12 @@ def restore(ckpt_dir: str, target_tree: Any, step: Optional[int] = None,
     with np.load(os.path.join(d, "arrays.npz")) as arrays:
         for path, old_leaf in leaves_with_paths(target_tree):
             key = path_key(path)
+            if key not in arrays.files:
+                raise ValueError(f"{d} holds no leaf {key}")
             arr = arrays[key]
+            if arr.shape != tuple(old_leaf.shape):
+                raise ValueError(f"{d}: leaf {key} has shape {arr.shape}, "
+                                 f"the target {tuple(old_leaf.shape)}")
             if meta["dtypes"][key] == "bfloat16":
                 t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
             else:

@@ -32,7 +32,9 @@ on the simulator backend, replays on the simulated clock):
       --requests 4 --calibration run --calibration-path /tmp/c.json
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --tiny \
       --trace pinned --requests 8
-One request through a single-request driver (batch 1, dense cache):
+One request through a single-request driver (a dense engine of
+``--batch`` rows, default 1; the drivers follow row 0, greedy returns
+every row):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --arch wedlm8b_like --tiny --algorithm diffusion --tokens 24
 
@@ -42,11 +44,25 @@ other serve mode are refused.  whisper_tiny is refused: its forward
 needs frame embeddings, which no engine path passes (as in the
 reference).
 
-Weights (and the 4-head MTP bank) are random, drawn from ``--seed``;
-prompts come from a numpy generator with the same seed.  The NFP budget
+Weights (and the 4-head MTP bank) are random, drawn from ``--seed``,
+unless ``--ckpt-dir`` names a directory of checkpoints: then every mode
+serves the ``params`` of its newest committed checkpoint (one written by
+either package's train launcher or by ``examples.train_lm``), in their
+stored dtypes, on ``--device``; a directory without one raises, as does
+a checkpoint whose params do not fit ``--arch``:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm_3b \
+      --steps 100 --ckpt-dir ckpt
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b \
+      --ckpt-dir ckpt --requests 8 --kv-block-size 16
+Prompts come from a numpy generator seeded by ``--seed``.  The NFP budget
 of the ``--hardware`` spec sizes every forward.  On the card,
 ``decode_slots`` replays a CUDA graph per width (``--no-capture``: the
 eager forward).
+
+``serve(args)`` returns what it served: the ``params``, the ``prompts``,
+the ``streams`` and ``stats`` (and for the scheduler its ``loop``), and
+with ``--ckpt-dir`` the ``restore_s`` the restore took (ending in a
+synchronize).
 """
 from __future__ import annotations
 
@@ -60,6 +76,7 @@ import torch
 
 from repro_torch.autotune import (BudgetController, calibrate_engine,
                                   load_table, save_table, spec_fingerprint)
+from repro_torch.checkpoint import latest_step, restore
 from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.core.granularity import GranularitySpec
@@ -68,6 +85,7 @@ from repro_torch.core.simulate import decode_forward_cost
 from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_ffn import ops as moe_ops
+from repro_torch.launch.specs import params_abstract
 from repro_torch.loadgen import (PINNED_STACK, Trace, generate_trace,
                                  pinned_spec, replay_trace, scorecard)
 from repro_torch.models import init_model
@@ -119,18 +137,20 @@ def _paged(args):
                          n_blocks=args.kv_blocks or None)
 
 
-def single_request(args, cfg, params, device) -> None:
-    """One request through the ``--algorithm`` driver on a batch-1 dense
-    engine."""
-    eng = _engine(args, cfg, params, device, batch=1)
+def single_request(args, cfg, params, device) -> dict:
+    """One request through the ``--algorithm`` driver on a dense engine of
+    ``--batch`` rows, each its own prompt: greedy generates every row, the
+    drivers follow row 0 (as the reference's)."""
+    batch = args.batch or 1
+    eng = _engine(args, cfg, params, device, batch=batch)
     prompt = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, size=(1, args.prompt_len))
+        0, cfg.vocab_size, size=(batch, args.prompt_len))
     t0 = time.perf_counter()
     if args.algorithm == "greedy":
         out = eng.greedy_generate(torch.as_tensor(prompt, device=device),
-                                  args.tokens)[0].cpu().numpy()
-        stats = {"tokens": args.tokens, "forwards": args.tokens,
-                 "tokens_per_forward": 1.0}
+                                  args.tokens).cpu().numpy()
+        stats = {"tokens": batch * args.tokens, "forwards": args.tokens,
+                 "tokens_per_forward": float(batch)}
     else:
         if args.algorithm == "speculative":
             dec = SpeculativeDecoder(eng)
@@ -139,15 +159,19 @@ def single_request(args, cfg, params, device) -> None:
         else:
             dec = DiffusionBlockDecoder(eng, block_size=args.block_size,
                                         refine_steps=args.refine_steps)
-        out, stats = dec.generate(prompt, args.tokens)
+        row, stats = dec.generate(prompt, args.tokens)
+        out = row[None]
     _sync(device)
     dt = time.perf_counter() - t0
     print(f"arch={cfg.name} algorithm={args.algorithm} device={device.type} "
-          f"kernel={eng.use_kernel} nfp_budget={eng.nfp_budget()}")
+          f"batch={batch} kernel={eng.use_kernel} "
+          f"nfp_budget={eng.nfp_budget()}")
     print(f"generated {stats['tokens']} tokens in {dt:.3f}s "
           f"({stats['forwards']} forwards, "
           f"{stats['tokens_per_forward']:.2f} tok/fwd)")
-    print("tokens:", out[:32], "...")
+    print("tokens:", out[0][:32], "...")
+    return {"prompts": prompt, "streams": out, "stats": stats,
+            "seconds": dt}
 
 
 def calibration_controller(args, eng) -> BudgetController:
@@ -189,7 +213,7 @@ def warm(loop) -> None:
               f"{time.perf_counter() - t0:.1f}s")
 
 
-def serve_requests(args, cfg, params, device) -> None:
+def serve_requests(args, cfg, params, device) -> dict:
     """``--requests`` prompts through the ServingLoop (the default)."""
     paged = _paged(args)
     eng = _engine(args, cfg, params, device, batch=args.slots, paged=paged)
@@ -203,9 +227,10 @@ def serve_requests(args, cfg, params, device) -> None:
     warm(loop)
     rng = np.random.default_rng(args.seed)
     n_requests = args.requests if args.requests is not None else REQUESTS
+    prompts = {}
     for _ in range(n_requests):
-        loop.submit(rng.integers(0, cfg.vocab_size, size=args.prompt_len),
-                    args.tokens)
+        p = rng.integers(0, cfg.vocab_size, size=args.prompt_len)
+        prompts[loop.submit(p, args.tokens).rid] = p
     for fn in KERNELS.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -246,6 +271,8 @@ def serve_requests(args, cfg, params, device) -> None:
               f"{s['prefill_positions_saved']} prefill positions saved")
     for rid, toks in list(results.items())[:4]:
         print(f"  req {rid}: {toks[:16]} ...")
+    return {"prompts": prompts, "streams": results, "stats": s,
+            "seconds": dt, "loop": loop}
 
 
 def simulated_clock(arch: str, slots: int, hw):
@@ -264,7 +291,7 @@ def simulated_clock(arch: str, slots: int, hw):
     return clock
 
 
-def trace_replay(args, cfg, params, device) -> None:
+def trace_replay(args, cfg, params, device) -> dict:
     """--trace: replay a loadgen trace (the pinned spec or a trace JSON
     file) through the ServingLoop with backpressure, SLO-priority
     admission and preemption, on the wall clock or the simulated one."""
@@ -348,6 +375,9 @@ def trace_replay(args, cfg, params, device) -> None:
         with open(args.bench_out, "w") as f:
             f.write(text)
         print(f"wrote {args.bench_out}")
+    return {"prompts": {r.rid: r.prompt for r in trace.requests},
+            "streams": report["streams"], "stats": s,
+            "report": report}
 
 
 def apply_pinned_stack(args) -> None:
@@ -359,19 +389,47 @@ def apply_pinned_stack(args) -> None:
     args.kv_blocks, args.max_waiting = st.kv_blocks, st.max_waiting
 
 
-def serve(args) -> None:
+def load_params(cfg, ckpt_dir: str, device) -> dict:
+    """The ``params`` subtree of the newest committed checkpoint in
+    ``ckpt_dir`` (an ``opt`` beside it is not read), in its stored dtypes,
+    on ``device``.  The target tree is ``cfg``'s, built from fake tensors:
+    nothing is drawn or allocated for it."""
+    step = latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"--ckpt-dir {ckpt_dir}: no committed "
+                                "checkpoint to serve")
+    restored, _ = restore(ckpt_dir, {"params": params_abstract(cfg)},
+                          step=step, device=device)
+    print(f"loaded checkpoint step {step} from {ckpt_dir}")
+    return restored["params"]
+
+
+def serve(args) -> dict:
+    """Serve as the flags say; returns what was served (see the module's
+    docstring) with the ``params`` it used."""
     device = resolve_device(args.device)
     if args.trace == "pinned":
         apply_pinned_stack(args)
     cfg = get_config(args.arch, reduced=args.tiny)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_model(cfg, gen, device)
-    if args.trace is not None:
-        trace_replay(args, cfg, params, device)
-    elif args.algorithm is not None:
-        single_request(args, cfg, params, device)
+    restore_s = None
+    if args.ckpt_dir is not None:
+        t0 = time.perf_counter()
+        params = load_params(cfg, args.ckpt_dir, device)
+        _sync(device)
+        restore_s = time.perf_counter() - t0
     else:
-        serve_requests(args, cfg, params, device)
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = init_model(cfg, gen, device)
+    if args.trace is not None:
+        out = trace_replay(args, cfg, params, device)
+    elif args.algorithm is not None:
+        out = single_request(args, cfg, params, device)
+    else:
+        out = serve_requests(args, cfg, params, device)
+    out["params"] = params
+    if restore_s is not None:
+        out["restore_s"] = restore_s
+    return out
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -380,7 +438,15 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="stablelm_3b")
     ap.add_argument("--tiny", action="store_true",
                     help="the reduced configuration")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the prompts, and of the random weights "
+                         "without --ckpt-dir")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest committed "
+                         "checkpoint in this directory (raising if it holds "
+                         "none) instead of random weights; the calibration "
+                         "key does not see the weights, as the "
+                         "reference's does not")
     ap.add_argument("--hardware", default="h100", choices=sorted(PRESETS),
                     help="hardware spec of the NFP budget and the "
                          "simulator")
@@ -392,8 +458,14 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--serve-mode", default="greedy", choices=MODES)
     ap.add_argument("--algorithm", default=None, choices=MODES,
                     help="serve ONE request through this single-request "
-                         "driver (batch 1, dense cache) instead of the "
-                         "scheduler; --requests and --slots are ignored")
+                         "driver (a dense engine of --batch rows) instead "
+                         "of the scheduler; --requests and --slots are "
+                         "ignored")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="--algorithm only: the engine's rows, each with its "
+                         "own prompt (default 1); greedy generates every "
+                         "row, the other drivers follow row 0.  The "
+                         "scheduler sizes its batch by --slots")
     ap.add_argument("--block-size", type=int, default=None,
                     help="diffusion block size (default: the NFP budget)")
     ap.add_argument("--refine-steps", type=int, default=4,
@@ -440,8 +512,12 @@ def build_parser() -> argparse.ArgumentParser:
 def check_args(ap: argparse.ArgumentParser, args) -> None:
     if args.kv_blocks > 0 and args.kv_block_size <= 0:
         ap.error("--kv-blocks sizes the paged pool; add --kv-block-size")
+    if args.batch is not None and (args.algorithm is None
+                                   or args.batch < 1):
+        ap.error("--batch sizes the engine of --algorithm (at least 1); "
+                 "the scheduler sizes its batch by --slots")
     if args.algorithm is not None and args.kv_block_size > 0:
-        ap.error("--algorithm drives a batch-1 dense engine; drop "
+        ap.error("--algorithm drives a dense engine; drop "
                  "--kv-block-size")
     if args.calibration != "off" and (args.algorithm is not None
                                       or args.trace is not None):
