@@ -66,7 +66,29 @@ Phases, in order; any failure exits non-zero:
                 launch floor (a one-element add_ under the same timing),
                 and prints the MoE kernel's M_moe / tau staircase over T
                 and the scan's M_ssm staircase over n.
-  4. analysis — ``python -m repro_torch.analysis --check-baseline`` in a
+  3b. moe_plain — the plain MoE path (``moe_ffn(use_kernel=False)``: one
+                ``torch._grouped_mm`` per weight over each expert's own
+                rows) at the full-width layer shapes of
+                granite_moe_3b_a800m (E 40, top-8), llada_mini_like (E
+                256, top-8) and mixtral_8x22b (E 8, top-2), bf16, with
+                each layer's router, prefill 4 x 48 and decode 4 x 1
+                tokens: against ``masked_ffn`` (every row through every
+                expert, each keeping its own by ``torch.where``: the
+                port's plain path before the grouped products) within 2^-8
+                normwise and against ``moe_ffn(use_kernel=True)`` within
+                2^-7 (the kernel keeps h in f32), the three timed; then
+                llada's width in f32, which a CUDA tensor routes to the
+                block-aligned product (``_grouped_mm`` would read the
+                group ends back to the host): ms and memory.  A forward
+                and backward of one full-width granite MoE layer under
+                ``torch.cuda.set_sync_debug_mode("error")``: no host read.
+                One train step of granite at full width and 8 of its 32
+                layers (batch 4 x 256, n_micro 1, remat True) on the
+                grouped and the masked path, the same weights and batch:
+                first loss held equal (1e-2 relative) and every leaf's
+                gradient (the worst within 2^-8 normwise), median step
+                ms and memory peak printed.
+  4. analysis— ``python -m repro_torch.analysis --check-baseline`` in a
                 subprocess (host syncs on the hot paths, recapture
                 hazards, the ctypes signatures against the extern "C"
                 lists, the launch tiles at the twelve configs' shapes,
@@ -137,8 +159,10 @@ Phases, in order; any failure exits non-zero:
                 the full-size forward kernel-vs-plain.  The diffusion runs
                 repeat in float32 (wedlm at full size, 33 GB; llada at
                 full width and 4 of its 20 layers, printed as a cut)
-                through the plain versions (the kernels take bf16 only),
-                where the solo comparison and the K/V check are held.
+                through the plain versions (the kernels take bf16 only;
+                llada's MoE FFN there the block-aligned product, an f32
+                CUDA tensor's route), where the solo comparison and the
+                K/V check are held; each prints its tok/s.
                 Every run prints its forwards, positions per forward,
                 budget range and tok/s, and a profile of its steady steps
                 its device-idle share.  Each model's paged greedy run (for
@@ -4414,6 +4438,248 @@ RUN_PREFIX = {"phi3_medium_14b": "phi3medium",
               "phi3_vision_4p2b": "phi3vision"}
 
 
+# moe_plain: the plain MoE path (one grouped product per weight) at the
+# full-width layer shapes, (E, top-k, d_model, expert d_ff) by model;
+# prefill 4 x 48 and decode 4 x 1 tokens
+PLAIN_MOE = {"granite_moe_3b_a800m": GRANITE_MOE,
+             "llada_mini_like": LLADA_MOE, "mixtral_8x22b": MIXTRAL_MOE}
+PLAIN_MOE_T = {"prefill": 4 * 48, "decode": 4}
+PLAIN_TRAIN_LAYERS = 8
+PLAIN_TRAIN_STEPS = 4                         # timed, after one warm-up
+# normwise: both plain paths round h to bf16, the kernel keeps it in f32
+PLAIN_MASKED_NORM = 2.0 ** -8
+# every leaf's gradient, grouped vs masked: bf16 gradients whose
+# products sum in another order may differ by their last bit
+PLAIN_GRAD_NORM = 2.0 ** -8
+PLAIN_KERNEL_NORM = 2.0 ** -7
+PLAIN_MOE_RESULTS = {}
+
+
+def masked_ffn(x_sorted, params, group_sizes, activation, n_tokens=0):
+    """The plain MoE FFN the port ran before its grouped products: every
+    sorted row through every expert's FFN, each row keeping its own
+    expert's by ``torch.where`` (O(M·E)); ``h`` rounded to x's type."""
+    F = torch.nn.functional
+    m = x_sorted.shape[0]
+    expert_of_row = torch.searchsorted(
+        torch.cumsum(group_sizes, 0, dtype=torch.int32),
+        torch.arange(m, dtype=torch.int32, device=x_sorted.device),
+        right=True)
+    out = torch.zeros_like(x_sorted)
+    for ei in range(group_sizes.shape[0]):
+        up = x_sorted @ params["w_up"][ei]
+        if activation == "swiglu":
+            gate = x_sorted @ params["w_gate"][ei]
+            h = (F.silu(gate.float()) * up.float()).to(x_sorted.dtype)
+        else:
+            h = F.gelu(up.float(), approximate="tanh").to(x_sorted.dtype)
+        out = torch.where((expert_of_row == ei)[:, None],
+                          h @ params["w_down"][ei], out)
+    return out
+
+
+@contextlib.contextmanager
+def plain_moe_as(moe, fn):
+    """``models.moe``'s plain expert FFN replaced by ``fn`` inside."""
+    real, moe.plain_ffn = moe.plain_ffn, fn
+    try:
+        yield
+    finally:
+        moe.plain_ffn = real
+
+
+def moe_layer_params(arch, seed=0) -> tuple:
+    """(FFN spec, params) of one full-width MoE layer, bf16 experts and
+    the f32 router, at the reference init's scales."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe
+    cfg = get_config(arch)
+    params = init_moe(torch.Generator(device="cuda").manual_seed(seed),
+                      cfg.d_model, cfg.ffn)
+    return cfg.ffn, params
+
+
+def plain_moe_layers(moe, moe_ops, card) -> None:
+    """The grouped plain path against the masked helper and against
+    ``moe_ffn(use_kernel=True)`` (normwise both: the kernel keeps ``h`` in
+    f32), ms each, at every model's
+    full-width layer shapes; then llada's f32 route (the block-aligned
+    product) and its memory."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int8, device="cuda")
+    for arch, (e, k, d, f) in PLAIN_MOE.items():
+        spec, params = moe_layer_params(arch, seed=12)
+        for label, t in PLAIN_MOE_T.items():
+            x = (torch.randn((4, t // 4, d), device="cuda",
+                             generator=torch.Generator(device="cuda")
+                             .manual_seed(t)) * 0.5).to(torch.bfloat16)
+            launched = moe_ops.grouped_ffn_padded.launches
+            grouped = moe.moe_ffn(params, spec, x)[0]
+            kernel = moe.moe_ffn(params, spec, x, use_kernel=True)[0]
+            if moe_ops.grouped_ffn_padded.launches != launched + 1:
+                raise AssertionError(f"moe_plain {arch}: the kernel path "
+                                     "launched no kernel")
+            with plain_moe_as(moe, masked_ffn):
+                masked = moe.moe_ffn(params, spec, x)[0]
+            err = float((grouped.float() - masked.float()).abs().max())
+            norms = (_normwise(grouped, masked), _normwise(grouped, kernel))
+            if not (norms[0] <= PLAIN_MASKED_NORM
+                    and norms[1] <= PLAIN_KERNEL_NORM):
+                raise AssertionError(f"moe_plain {arch} {label}: grouped "
+                                     f"vs masked {norms[0]:.3g}, vs the "
+                                     f"kernel path {norms[1]:.3g} normwise")
+            ms = {"grouped": time_ms(lambda: moe.moe_ffn(params, spec, x),
+                                     flush),
+                  "kernel": time_ms(lambda: moe.moe_ffn(
+                      params, spec, x, use_kernel=True), flush)}
+            with plain_moe_as(moe, masked_ffn):
+                ms["masked"] = time_ms(lambda: moe.moe_ffn(params, spec, x),
+                                       flush, iters=5)
+            PLAIN_MOE_RESULTS[f"{arch} {label}"] = ms
+            print(f"moe_plain {arch} {label} (T {t}, E {e}, top-{k}, d {d}, "
+                  f"f {f}, bf16, moe_ffn with its router): grouped "
+                  f"{ms['grouped']:.4f} ms, masked {ms['masked']:.4f} ms "
+                  f"({ms['masked'] / ms['grouped']:.1f}x), kernel path "
+                  f"{ms['kernel']:.4f} ms; grouped vs masked max abs err "
+                  f"{err:.4g}, {norms[0]:.3g} normwise (limit "
+                  f"{PLAIN_MASKED_NORM:.3g}), vs the kernel path "
+                  f"{norms[1]:.3g} (limit {PLAIN_KERNEL_NORM:.3g}) "
+                  f"[{card}]")
+        if arch == "llada_mini_like":
+            p32 = {key: v.float() for key, v in params.items()}
+            for label, t in PLAIN_MOE_T.items():
+                x = torch.randn((4, t // 4, d), device="cuda") * 0.5
+                gc.collect()
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                out = moe.moe_ffn(p32, spec, x)[0]
+                torch.cuda.synchronize()
+                extra = (torch.cuda.max_memory_allocated() - base) / 1e9
+                ms32 = time_ms(lambda: moe.moe_ffn(p32, spec, x), flush,
+                               iters=5)
+                PLAIN_MOE_RESULTS[f"{arch} f32 {label}"] = {
+                    "ms": ms32, "peak_gb": extra}
+                print(f"moe_plain {arch} f32 {label} (T {t}; a CUDA tensor "
+                      f"of f32 takes the block-aligned product): "
+                      f"{ms32:.4f} ms, memory above the inputs "
+                      f"{extra:.3f} GB, output finite "
+                      f"{bool(torch.isfinite(out).all())} [{card}]")
+            del p32
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _leaf_gap(got, want) -> float:
+    """``_normwise``, or the difference's norm where ``want`` is zero."""
+    diff = float((got.double() - want.double()).norm())
+    norm = float(want.double().norm())
+    return diff / norm if norm else diff
+
+
+def plain_moe_no_sync(moe, card) -> None:
+    """A forward and backward of one full-width granite MoE layer (bf16,
+    its router) on the plain path under
+    ``torch.cuda.set_sync_debug_mode("error")``: any host read raises."""
+    spec, params = moe_layer_params("granite_moe_3b_a800m", seed=13)
+    for v in params.values():
+        v.requires_grad_()
+    x = (torch.randn((4, 48, params["w_up"].shape[1]), device="cuda")
+         * 0.5).to(torch.bfloat16)
+    x.requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, aux = moe.moe_ffn(params, spec, x)
+        (out.float().sum() + aux).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for name, v in params.items():
+        if v.grad is None or not bool(torch.isfinite(v.grad).all()):
+            raise AssertionError(f"moe_plain no-sync: {name} has no finite "
+                                 "gradient")
+    print(f"moe_plain granite_moe_3b_a800m layer forward + backward (x 4 x "
+          f"48, bf16) under set_sync_debug_mode('error'): no host read; "
+          f"every leaf's gradient finite [{card}]")
+
+
+def plain_moe_train(moe, card) -> None:
+    """One train step of granite at full width and ``PLAIN_TRAIN_LAYERS``
+    of its 32 layers (batch 4 x 256, n_micro 1, remat True) on the grouped
+    path and on the masked one, same weights and batch: the first loss
+    of each, and each leaf's gradient (the worst leaf's normwise
+    difference within ``PLAIN_GRAD_NORM``), then the median step ms and
+    memory peak."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.training import (AdamWConfig, grad_accum_fn,
+                                      init_opt_state, make_train_step)
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
+                              n_layers=PLAIN_TRAIN_LAYERS)
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 256),
+                                     generator=g, device="cuda")}
+    first, grads = {}, {}
+    for name, fn in (("grouped", moe.plain_ffn), ("masked", masked_ffn)):
+        with plain_moe_as(moe, fn):
+            tree, loss, _ = grad_accum_fn(params, cfg, batch, 1, 0.01, True)
+        grads[name] = list(_leaves(tree))
+        first[name] = (float(loss), float(torch.sqrt(sum(
+            v.float().square().sum() for v in grads[name]))))
+        del tree
+    (l0, n0), (l1, n1) = first["grouped"], first["masked"]
+    worst = max(_leaf_gap(a, b) for a, b in zip(grads["grouped"],
+                                                grads["masked"]))
+    del grads
+    first["worst_leaf"] = worst
+    if abs(l0 - l1) > 1e-2 * abs(l1) or not worst <= PLAIN_GRAD_NORM:
+        raise AssertionError(f"moe_plain train: grouped loss {l0}, masked "
+                             f"{l1}; worst leaf's gradient {worst:.3g} "
+                             "normwise")
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4), n_micro=1, remat=True)
+    res = {}
+    for name, fn in (("grouped", moe.plain_ffn), ("masked", masked_ffn)):
+        opt = init_opt_state(params)
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        with plain_moe_as(moe, fn):
+            for _ in range(PLAIN_TRAIN_STEPS + 1):
+                (params, opt, m), dt = _timed(lambda: step(params, opt,
+                                                           batch))
+                times.append(dt)
+        if not np.isfinite(float(m["loss"])):
+            raise AssertionError(f"moe_plain train {name}: loss "
+                                 f"{float(m['loss'])}")
+        res[name] = (1e3 * statistics.median(times[1:]),
+                     torch.cuda.max_memory_allocated() / 1e9)
+        del opt
+    PLAIN_MOE_RESULTS["train"] = {**res, "first": first}
+    print(f"moe_plain train granite_moe_3b_a800m ({PLAIN_TRAIN_LAYERS} of 32 "
+          f"layers at full width, batch 4 x 256, n_micro 1, remat True): "
+          f"first loss grouped {l0:.5f} / masked {l1:.5f}, grad norm "
+          f"{n0:.5g} / {n1:.5g}, worst leaf's gradient {worst:.3g} "
+          f"normwise (limit {PLAIN_GRAD_NORM:.3g}); step (median of "
+          f"{PLAIN_TRAIN_STEPS}) "
+          f"grouped {res['grouped'][0]:.1f} ms, masked "
+          f"{res['masked'][0]:.1f} ms; memory peak grouped "
+          f"{res['grouped'][1]:.2f} GB, masked {res['masked'][1]:.2f} GB "
+          f"[{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def moe_plain_phase(moe, moe_ops, card) -> None:
+    """The plain MoE path: layer shapes, no host read, a train step."""
+    plain_moe_layers(moe, moe_ops, card)
+    plain_moe_no_sync(moe, card)
+    plain_moe_train(moe, card)
+
+
 def main() -> int:
     global OUT
     ap = argparse.ArgumentParser(description="Smoke test of the port on "
@@ -4554,6 +4820,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s")
+
+    # 3b. the plain MoE path: one grouped product per weight
+    t0 = time.perf_counter()
+    moe_plain_phase(moe, moe_ops, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase moe_plain: {time.perf_counter() - t0:.1f} s [{card}]")
 
     # 4. analysis: the static gate now, the recorded launches after the
     # RECORDED serving phases

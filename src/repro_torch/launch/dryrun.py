@@ -41,25 +41,35 @@ the forward wrote are exchanged afterwards.  Per cell:
               calls and functional collectives): how many, and their
               input bytes per device.
 
-A run past ``FLOP_LIMIT_S`` seconds records null FLOPs, collectives and
-peak, and the reason (the plain SSM scans step per position, so SSM /
-hybrid prefill and train cells get there).
+A train cell is counted per micro-batch and per layer, as the
+reference's XLA dry run counts a scan body once and scales it by its trip
+count (``train_counts``): rank 0's step on the cell's full shapes at
+n_micro 1 and 2 and with the layer pattern's unit repeated at two
+depths (``depth_repeats``), extrapolated affinely to the cell's micro-batches
+and layers; the method goes into the record's notes.  Prefill and decode
+cells run whole.  Every run counts the plain Mamba scans as one operation
+a call (``core.scan_op.whole_scans``: the loops' FLOPs and saved bytes).
+A cell whose runs pass ``FLOP_LIMIT_S`` seconds records null FLOPs,
+collectives and peak, and the reason.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import logging
 import math
 import os
 import time
 import traceback
-from typing import Dict, Optional
+from fractions import Fraction
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.arch import LM_SHAPES, shape_applicable
+from repro_torch.core.scan_op import whole_scans
 from repro_torch.core.tree import leaves
 from repro_torch.dist.sharding import placements_from_pspecs, shard_bytes
 from repro_torch.dist.tensor_parallel import tp_plan
@@ -178,10 +188,11 @@ def collective_bytes(records):
 
 def track_run(fn, args):
     """``measure``'s numbers of ``fn(*args)``, run in this process with no
-    time limit."""
+    time limit; the plain scans run as one operation a call
+    (``core.scan_op.whole_scans``)."""
     tracker = _tracker_class()()
     tracker.track_external(*leaves(args))
-    with fake_mode(), tracker:
+    with fake_mode(), tracker, whole_scans():
         fn(*args)
     nbytes, counts = collective_bytes(tracker.records)
     peak = max(snap["Total"] for snap in
@@ -190,14 +201,39 @@ def track_run(fn, args):
             "collective_counts": counts, "peak_bytes": int(peak)}
 
 
-def _child(fn, args, conn) -> None:
+def _child(jobs, conn) -> None:
     try:
-        conn.send(track_run(fn, args))
+        conn.send([track_run(fn, args) for fn, args in jobs])
     except Exception:                                       # noqa: BLE001
         conn.send({"error": traceback.format_exc()})
     finally:
         conn.close()
         os._exit(0)
+
+
+def measure_all(jobs, limit: Optional[float] = None):
+    """``measure`` of each (fn, args) of ``jobs``, one after another in
+    one forked child (which pays the fake mode's first-run warm-up once,
+    about a second); FlopLimit when all of them pass ``limit`` seconds
+    (``FLOP_LIMIT_S`` when None)."""
+    import multiprocessing
+    limit = FLOP_LIMIT_S if limit is None else limit
+    ctx = multiprocessing.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+    child = ctx.Process(target=_child, args=(jobs, send))
+    child.start()
+    send.close()
+    try:
+        if not recv.poll(max(limit, 0.0)):
+            raise FlopLimit(f"the fake-tensor run passed {limit:.0f} s")
+        got = recv.recv()
+    finally:
+        child.kill()
+        child.join()
+        recv.close()
+    if "error" in got:
+        raise RuntimeError(f"rank 0's run failed:\n{got['error']}")
+    return got
 
 
 def measure(fn, args):
@@ -210,24 +246,135 @@ def measure(fn, args):
     stop it, since one raised while saved-tensor hooks are pushed (a
     checkpointed layer) or in some ops' autograd wrappers aborts the
     process instead of unwinding."""
-    import multiprocessing
-    ctx = multiprocessing.get_context("fork")
-    recv, send = ctx.Pipe(duplex=False)
-    child = ctx.Process(target=_child, args=(fn, args, send))
-    child.start()
-    send.close()
+    return measure_all([(fn, args)])[0]
+
+
+# ---------------------------------------------------------------------------
+# Train cells: counted per micro-batch and per layer
+# ---------------------------------------------------------------------------
+
+def pattern_period(cfg) -> Tuple[Tuple[str, ...], int, Tuple[str, ...]]:
+    """(unit, repeats, tail): the config's layer pattern as its shortest
+    repeating unit, how many whole times it repeats, and the rest (a
+    prefix of the unit).  All-attention: ((attn,), n_layers, ()); zamba2:
+    ((ssm x5, hybrid), 6, (ssm, ssm))."""
+    pattern = cfg.pattern()
+    for p in range(1, len(pattern) + 1):
+        if all(kind == pattern[i % p] for i, kind in enumerate(pattern)):
+            return pattern[:p], len(pattern) // p, pattern[
+                len(pattern) // p * p:]
+    raise AssertionError("unreachable")
+
+
+def depth_repeats(cfg, remat) -> Tuple[int, int]:
+    """The two repeat counts of the pattern's unit a train cell is
+    counted at: 1 and 2 for a unit of several segments (zamba2's); for a
+    one-kind pattern (the unit one layer, the repeats one segment) two
+    and three times the fewest layers of which ``remat`` recomputes a
+    whole number.  A one-layer run's peak is not yet on the per-layer
+    slope: phi3_vision's rises 310 MB from one layer to two, then 108.6
+    MB a layer."""
+    unit, _, _ = pattern_period(cfg)
+    if len(set(unit)) > 1:
+        return 1, 2
+    r = 1
+    if not isinstance(remat, bool):
+        r = Fraction(remat).limit_denominator(64).denominator
+    return 2 * r, 3 * r
+
+
+def with_repeats(cfg, repeats: int):
+    """``cfg`` with its pattern's unit repeated ``repeats`` times, then
+    its tail."""
+    unit, _, tail = pattern_period(cfg)
+    pattern = unit * repeats + tail
+    return dataclasses.replace(
+        cfg, n_layers=len(pattern),
+        layer_pattern=None if cfg.layer_pattern is None else pattern)
+
+
+def _numbers(got) -> Dict[str, float]:
+    """A run's FLOPs, collective bytes and counts and peak, flat."""
+    out = {"flops": got["flops"], "peak": got["peak_bytes"]}
+    for kind in KINDS:
+        out["bytes/" + kind] = got["collective_bytes"][kind]
+        out["count/" + kind] = got["collective_counts"][kind]
+    return out
+
+
+def _batch_bytes(local) -> int:
+    return sum(t.numel() * t.element_size() for t in leaves(local[2]))
+
+
+def train_counts(cfg, shape, mesh, n_micro: int, variant: str = "baseline"):
+    """(numbers, method) of a train cell, counted per micro-batch and per
+    layer as the reference's XLA dry run counts a scan body once and
+    scales it by its trip count.  Rank 0's step runs on the cell's full
+    shapes at n_micro 1 and 2 (the same micro-batch) and with the layer
+    pattern's unit repeated ``depth_repeats`` times (segments kept in the
+    pattern: a hybrid's Mamba2 runs and shared-attention layers);
+    FLOPs, collective counts and bytes are affine in the micro-batches,
+    in the repeats and in their product, and are extrapolated to the
+    cell's; the peak is the 2-micro-batch runs' (the gradient
+    accumulator exists from the second on), affine in the repeats, plus
+    the cell's further micro-batches' input bytes.  FlopLimit when all
+    the runs pass ``FLOP_LIMIT_S`` seconds."""
+    t0 = time.time()
+    full_cell = build_cell(cfg, shape, mesh, n_micro=n_micro,
+                           variant=variant)
+    n_micro = full_cell[0].keywords["n_micro"]      # dp_only: 1
+    mb = shape.global_batch // n_micro
+    ns = (1, 2) if n_micro > 1 else (1,)
+    reps = depth_repeats(cfg, full_cell[0].keywords["remat"])
+    jobs, batch = {}, {}
+    for r in reps:
+        sub = with_repeats(cfg, r)
+        for n in ns:
+            sub_shape = dataclasses.replace(shape, global_batch=mb * n)
+            cell = build_cell(sub, sub_shape, mesh, n_micro=n,
+                              variant=variant)
+            fn, local, _ = rank_local_cell(sub, sub_shape, mesh, cell,
+                                           variant=variant)
+            jobs[r, n] = (fn, local)
+            batch[n] = _batch_bytes(local)
     try:
-        if not recv.poll(FLOP_LIMIT_S):
-            raise FlopLimit(f"the fake-tensor run passed "
-                            f"{FLOP_LIMIT_S:.0f} s")
-        got = recv.recv()
-    finally:
-        child.kill()
-        child.join()
-        recv.close()
-    if "error" in got:
-        raise RuntimeError(f"rank 0's run failed:\n{got['error']}")
-    return got
+        runs = measure_all(list(jobs.values()),
+                           FLOP_LIMIT_S - (time.time() - t0))
+    except FlopLimit:
+        raise FlopLimit(f"the fake-tensor runs passed {FLOP_LIMIT_S:.0f} s")
+    got = {key: _numbers(run) for key, run in zip(jobs, runs)}
+    full_batch = _batch_bytes(rank_local_cell(cfg, shape, mesh, full_cell,
+                                              variant=variant)[1])
+
+    def at(r):
+        one, last = got[r, 1], got[r, ns[-1]]
+        vals = {k: one[k] + (n_micro - 1) * (last[k] - one[k]) for k in one}
+        vals["peak"] = last["peak"]
+        return vals
+    lo, hi = at(reps[0]), at(reps[1])
+    repeats = pattern_period(cfg)[1]
+    out = {k: lo[k] + (repeats - reps[0]) / (reps[1] - reps[0])
+           * (hi[k] - lo[k]) for k in lo}
+    out["peak"] += full_batch - batch[ns[-1]]
+    unit, _, tail = pattern_period(cfg)
+    method = (f"rank 0's step at n_micro {' and '.join(map(str, ns))} "
+              f"(micro-batch {mb}) with the layer pattern's unit "
+              f"({len(unit)} layer{'s' * (len(unit) > 1)}) repeated "
+              f"{reps[0]} and {reps[1]} times"
+              f"{f' plus its {len(tail)}-layer tail' if tail else ''}, "
+              f"extrapolated to n_micro {n_micro} and {repeats} repeats: "
+              f"FLOPs and collectives affine in micro-batches, repeats and "
+              f"their product; the peak the {ns[-1]}-micro-batch runs', "
+              f"affine in repeats, plus the further micro-batches' input "
+              f"bytes")
+    numbers = {
+        "flops": int(round(out["flops"])),
+        "collective_bytes": {k: int(round(out["bytes/" + k]))
+                             for k in KINDS},
+        "collective_counts": {k: int(round(out["count/" + k]))
+                              for k in KINDS},
+        "peak_bytes": int(round(out["peak"]))}
+    return numbers, method
 
 
 # ---------------------------------------------------------------------------
@@ -281,8 +428,14 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
                                  f"{local_bytes} bytes, the specs "
                                  f"{arg_bytes}")
         t_lower = time.time() - t0
+        method = None
         try:
-            got, reason = measure(fn, local), None
+            if shape.mode == "train":
+                got, method = train_counts(cfg, shape, mesh, n_micro,
+                                           variant=variant)
+            else:
+                got = measure(fn, local)
+            reason = None
         except FlopLimit as e:
             got, reason = dict.fromkeys(
                 ("flops", "collective_bytes", "collective_counts",
@@ -318,8 +471,13 @@ def run_cell(arch: str, shape, multi_pod: bool, out_dir: str,
                    "flops": "per device: FlopCounterMode over rank 0's "
                             "run on its shards",
                    "collectives": "what rank 0's run launched, per kind: "
-                                  "count and input bytes per device"},
+                                  "count and input bytes per device",
+                   "scans": "the plain Mamba scans count as one operation "
+                            "a call (core.scan_op), with the loops' FLOPs "
+                            "and saved bytes"},
         )
+        if method:
+            rec["notes"]["train"] = method
         if reason:
             rec["cost"]["flops_reason"] = reason
         print(f"[ok]   {cell_id}  args={arg_bytes / 1e9:.3f} GB/device "

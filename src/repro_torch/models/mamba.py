@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import scan_op
 from repro_torch.core.arch import SSMSpec
 from repro_torch.kernels.mamba_scan.ops import (selective_scan,
                                                 selective_scan_ref)
@@ -127,7 +128,7 @@ def mamba1_block(params: Dict, s: SSMSpec, x: Tensor,
     h0 = (state["ssm"] if state is not None
           else torch.zeros((batch, di, s.d_state), dtype=torch.float32,
                            device=x.device))
-    scan = selective_scan if use_kernel else selective_scan_ref
+    scan = selective_scan if use_kernel else _mamba1_scan
     ys, h = scan(x_conv.float(), dt, b_ssm, c_ssm, a, h0)
     y = ys + params["D"] * x_conv.float()
     y = (y * F.silu(z.float())).to(x.dtype)
@@ -192,8 +193,26 @@ def init_mamba2_state(batch: int, d_model: int, s: SSMSpec,
     }
 
 
+def _mamba1_scan(x: Tensor, dt: Tensor, b_in: Tensor, c_in: Tensor,
+                 a: Tensor, h0: Tensor) -> Tuple[Tensor, Tensor]:
+    """``selective_scan_ref``; inside ``core.scan_op.whole_scans()`` (the
+    dry run) one operation."""
+    if scan_op.active():
+        return scan_op.selective_scan_whole(x, dt, b_in, c_in, a, h0)
+    return selective_scan_ref(x, dt, b_in, c_in, a, h0)
+
+
 def _mamba2_scan(dtx: Tensor, da: Tensor, b_h: Tensor, c_h: Tensor,
                  h: Tensor) -> Tuple[Tensor, Tensor]:
+    """``mamba2_loop``; inside ``core.scan_op.whole_scans()`` (the dry
+    run) one operation."""
+    if scan_op.active():
+        return scan_op.mamba2_scan_whole(dtx, da, b_h, c_h, h)
+    return mamba2_loop(dtx, da, b_h, c_h, h)
+
+
+def mamba2_loop(dtx: Tensor, da: Tensor, b_h: Tensor, c_h: Tensor,
+                h: Tensor) -> Tuple[Tensor, Tensor]:
     """The per-position recurrence, position by position in the
     reference's order: h = exp(dt·a)·h + (dt·x) ⊗ B, y = h·C.
     dtx: (b, s, nh, dh); da: (b, s, nh); b_h, c_h: (b, s, nh, ds) (groups

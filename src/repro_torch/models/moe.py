@@ -7,7 +7,11 @@ sync; ``torch.bincount`` on CUDA reads its maximum back to the host).
 The expert FFN is the Hopper grouped-FFN kernel with ``use_kernel``
 (``kernels.moe_ffn``: f32 ``h``, as the reference's Pallas kernel) and
 otherwise the plain counterpart of the reference's ``ragged_dot`` path
-(``h`` rounded to the activation type).  The combine un-permutes the
+(``h`` rounded to the activation type): one ``torch._grouped_mm`` per
+weight over each expert's own rows, its FLOPs counted by a formula this
+module registers with ``FlopCounterMode``; a CUDA tensor of another type
+than bf16, which that call would read back to the host, takes the
+kernel's block-aligned plain version instead.  The combine un-permutes the
 weighted rows to (T, k, d) and sums over k in f32: deterministic, where
 ``index_add_``'s CUDA atomics would change the sum's order run to run.
 
@@ -28,7 +32,9 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.core.arch import FFNSpec
-from repro_torch.kernels.moe_ffn.ops import grouped_ffn
+from repro_torch.core.granularity import select_token_block
+from repro_torch.kernels.moe_ffn.ops import (align_block_size, grouped_ffn,
+                                             grouped_ffn_ref)
 from repro_torch.models.layers import _init
 
 Tensor = torch.Tensor
@@ -116,27 +122,97 @@ def skewed_routing(n_tokens: int, k: int, n_experts: int,
     return torch.arange(k, device=device)[None, :].expand(n_tokens, k)
 
 
-def ragged_ffn(x_sorted: Tensor, params: Dict, group_sizes: Tensor,
-               activation: str) -> Tensor:
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity whose backward hands on a contiguous gradient:
+    ``_grouped_mm``'s backward refuses an expanded one (strides 0, as
+    ``y.sum().backward()`` gives)."""
+
+    @staticmethod
+    def forward(ctx, y: Tensor) -> Tensor:
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor) -> Tensor:
+        return grad.contiguous()
+
+
+def _gmm(x: Tensor, w: Tensor, offs: Tensor) -> Tensor:
+    """(M, K) rows grouped by ``offs`` (the groups' ends) times their
+    groups' (E, K, N) weights: one product over each group's own rows."""
+    return _ContiguousGrad.apply(torch._grouped_mm(x, w, offs=offs))
+
+
+def _grouped_mm_flops(a_shape, b_shape, *args, out_shape=None, **kwargs):
+    """2·M·K·N summed over the groups, for each layout ``moe_ffn``'s
+    forward and backward call: 2-D × 3-D (the products and the input
+    gradient), 2-D × 2-D grouped along the contraction (the weight
+    gradient), 3-D × 2-D grouped along N and 3-D × 3-D."""
+    if len(a_shape) == 2:
+        return 2 * a_shape[0] * a_shape[1] * b_shape[-1]
+    if len(b_shape) == 2:
+        return 2 * a_shape[1] * a_shape[2] * b_shape[1]
+    return 2 * a_shape[0] * a_shape[1] * a_shape[2] * b_shape[2]
+
+
+def _register_grouped_mm_flops() -> None:
+    """``FlopCounterMode`` has no formula for ``aten._grouped_mm`` and
+    would count the expert products as no work."""
+    from torch.utils.flop_counter import flop_registry, register_flop_formula
+    if torch.ops.aten._grouped_mm not in flop_registry:
+        register_flop_formula(torch.ops.aten._grouped_mm)(_grouped_mm_flops)
+
+
+_register_grouped_mm_flops()
+
+
+def grouped_products(x_sorted: Tensor, params: Dict, group_sizes: Tensor,
+                     activation: str) -> Tensor:
     """The plain counterpart of the reference's ``ragged_dot`` path: each
-    sorted row through its expert's FFN (selected by masking, O(M·E)),
-    products in x's type and ``h`` rounded to it."""
-    m = x_sorted.shape[0]
-    expert_of_row = torch.searchsorted(
+    sorted row through its own expert's FFN, one grouped product per
+    weight (``up``, ``gate`` for SwiGLU, ``down``), products in x's type
+    and ``h`` rounded to it.  The group ends stay on the device."""
+    offs = torch.cumsum(group_sizes, 0, dtype=torch.int32)
+    up = _gmm(x_sorted, params["w_up"], offs).float()
+    if activation == "swiglu":
+        h = F.silu(_gmm(x_sorted, params["w_gate"], offs).float()) * up
+    else:
+        h = F.gelu(up, approximate="tanh")
+    return _gmm(h.to(x_sorted.dtype), params["w_down"], offs)
+
+
+def aligned_products(x_sorted: Tensor, params: Dict, group_sizes: Tensor,
+                     activation: str, n_tokens: int) -> Tensor:
+    """The same FFN over the kernel's block-aligned layout
+    (``align_block_size``, then ``grouped_ffn_ref``'s gathered per-block
+    products): at most E·(token_block − 1) padded rows beyond the routed
+    ones, and no host read.  For CUDA tensors other than bf16, where
+    ``_grouped_mm`` reads the group ends back to the host."""
+    m, d = x_sorted.shape
+    e = group_sizes.shape[0]
+    token_block = select_token_block(n_tokens or m, e)
+    expert_of_sorted = torch.searchsorted(
         torch.cumsum(group_sizes, 0, dtype=torch.int32),
         torch.arange(m, dtype=torch.int32, device=x_sorted.device),
-        right=True)
-    out = torch.zeros_like(x_sorted)
-    for ei in range(group_sizes.shape[0]):
-        up = x_sorted @ params["w_up"][ei]
-        if activation == "swiglu":
-            gate = x_sorted @ params["w_gate"][ei]
-            h = (F.silu(gate.float()) * up.float()).to(x_sorted.dtype)
-        else:
-            h = F.gelu(up.float(), approximate="tanh").to(x_sorted.dtype)
-        out = torch.where((expert_of_row == ei)[:, None],
-                          h @ params["w_down"][ei], out)
-    return out
+        right=True, out_int32=True)
+    slot, block_expert, block_valid, m_pad = align_block_size(
+        expert_of_sorted, group_sizes, e, token_block)
+    slot = slot.long()
+    x_padded = x_sorted.new_zeros((m_pad, d)).index_copy(0, slot, x_sorted)
+    out = grouped_ffn_ref(
+        x_padded, params["w_gate"] if activation == "swiglu" else None,
+        params["w_up"], params["w_down"], block_expert, block_valid,
+        token_block=token_block, activation=activation)
+    return out[slot]
+
+
+def plain_ffn(x_sorted: Tensor, params: Dict, group_sizes: Tensor,
+              activation: str, n_tokens: int = 0) -> Tensor:
+    """The expert FFN without the kernel: ``grouped_products``, or on a
+    CUDA tensor of another type than bf16 ``aligned_products``."""
+    if x_sorted.device.type == "cuda" and x_sorted.dtype != torch.bfloat16:
+        return aligned_products(x_sorted, params, group_sizes, activation,
+                                n_tokens)
+    return grouped_products(x_sorted, params, group_sizes, activation)
 
 
 def route(params: Dict, f: FFNSpec, xt: Tensor
@@ -187,7 +263,8 @@ def moe_ffn(params: Dict, f: FFNSpec, x: Tensor,
         h_out = grouped_ffn(x_sorted, params, group_sizes, f.activation,
                             n_tokens=t)
     else:
-        h_out = ragged_ffn(x_sorted, params, group_sizes, f.activation)
+        h_out = plain_ffn(x_sorted, params, group_sizes, f.activation,
+                          n_tokens=t)
 
     # --- combine: back to (T, k) pair order, sum over k in f32 ------------
     contrib = h_out.float() * flat_w[order][:, None]
