@@ -103,13 +103,34 @@ Phases, in order; any failure exits non-zero:
                 within the kernel's limits, and the launched tiles equal to
                 the declared ones and to the pinned contract.  Prints the
                 distinct launch configurations of each entry point.
-  5. serving  — every decode forward replays a CUDA graph per width (the
-                captured decode step, ``serving.capture``).  For each
+  5. serving  — every forward replays a CUDA graph (``serving.capture``):
+                the decode step per width, the slotted prefill per (batch,
+                width), the prefix-hit suffix at its bucket width, the
+                single-request prefill and decode steps.  The eager runs
+                (``capture=False``) launch the same forwards one by one
+                (``serving.capture.EagerGraphs``).  For each
                 model first: captured against eager ``decode_slots`` at
                 n in {1, 5, 16, 17}, dense and paged (falcon dense): logits
                 and hidden bitwise equal, the cache (K/V, SSM states)
                 bitwise equal after a commit, launches per call equal
-                across eager calls, the capture and a replay.  Then
+                across eager calls, the capture and a replay.  Then, for
+                stablelm_3b (dense and paged), granite_moe_3b_a800m
+                (dense), falcon_mamba_7b (dense, exact-length groups) and
+                wedlm8b_like (paged), ``prefill_capture``: admissions of
+                all four slots, then of two re-admitted ones (paged: one a
+                prefix hit), and decode steps with commits, captured
+                against eager: every admitted slot's logits and hidden,
+                every cache tensor and the slot lengths bitwise, launches
+                per call equal; a product over the group's token rows
+                against the same rows of the product over the grid's
+                (printed: whether the card's GEMM rounds by row count);
+                for stablelm_3b and falcon_mamba_7b the
+                single-request ``greedy_generate`` and ``peek_step`` /
+                ``commit`` / ``decode_step`` captured against eager
+                (streams equal, logits and cache bitwise); and per bucket
+                the eager and replayed prefill ms, the graphs captured
+                and capture seconds, the scratch cache's bytes and the
+                memory the prefill graphs add.  Then
                 full-size stablelm_3b, then full-size granite_moe_3b_a800m,
                 then full-size falcon_mamba_7b, each with seeded random
                 bf16 weights, 4 slots, max_len 256,
@@ -170,8 +191,8 @@ Phases, in order; any failure exits non-zero:
                 (``capture=False``) in the same call: streams identical,
                 tok/s and the profiled idle share printed side by side.
                 Then five more attention-only models, seeded random bf16
-                weights: minicpm3_4b (MLA, full
-                size; no decode-attention kernel runs, so its launch
+                weights: minicpm3_4b (MLA, full width and 16 of its 62
+                layers; no decode-attention kernel runs, so its launch
                 counts are 0) as stablelm_3b without the dense
                 speculative run; mixtral_8x22b (sliding window 4096, MoE
                 E 8 top-2) at full width and 8 of its 56 layers, the same
@@ -305,7 +326,7 @@ Phases, in order; any failure exits non-zero:
                 serving shapes, n 1 and 16, against
                 ``decode_attention_ref``; its two launches are a run of the
                 kernels line.  Then tensor-parallel training
-                (``dist.tensor_parallel``): full-width stablelm_3b cut to 8
+                (``dist.tensor_parallel``): full-width stablelm_3b cut to 4
                 of its 32 layers, the one-process ``train_step`` for 3
                 steps at 8 x 256, n_micro 2, remat True, bf16 params, then
                 the same steps from the same seed and batches by two ranks
@@ -331,13 +352,13 @@ Phases, in order; any failure exits non-zero:
                 collectives, memory peaks.  No kernel launches in
                 training.  With it, ``fsdp_decode`` (its two ranks run at
                 the same time as fsdp's, four processes): full-width
-                falcon_mamba_7b cut to 8 of its 64 layers, f32, a prefill
+                falcon_mamba_7b cut to 4 of its 64 layers, f32, a prefill
                 of 4 rows x 48 tokens and 8 one-position decode forwards
                 on the kernels, by one process and by two ranks of a
                 (data 2, model 1) mesh on 2 rows each, params stored
                 halved and gathered per layer: each rank's logits within
                 1e-4 (normwise) of its rows of the one process's, (8 + 1)
-                x 8 scan launches a rank (added to the kernels line); the
+                x 4 scan launches a rank (added to the kernels line); the
                 two runs within 150 s (gloo carries ~1 GB/s a rank pair
                 of their gathers through the host).
   10. report  — one JSON line of kernels (launches summed over every run
@@ -481,6 +502,9 @@ LONG_PROMPT = 4352
 # mixtral_8x22b runs at full width and this depth (8 of its 56 layers:
 # 2.0e10 parameters, 41 GB in bf16; the full depth needs ~281 GB)
 MIXTRAL_LAYERS = 8
+# minicpm3_4b runs at full width and this depth (16 of its 62 layers):
+# at full depth its phase took ~100 s of the script's 1200
+MINICPM3_LAYERS = 16
 # captured vs eager decode_slots: the widths held bitwise equal
 CAPTURE_WIDTHS = (1, 5, 16, 17)
 # the calibration engines: 4 slots, a dense cache of this length (buckets
@@ -1189,44 +1213,46 @@ ROUTE_SINKS = []
 def capture_routes(eng) -> None:
     """A route hook appends, in Python, what it computes from each
     ``route_topk`` call, and a replayed CUDA graph calls no Python.  So
-    the entries the active hooks append while a width's graph is CAPTURED
+    the entries the active hooks append while a key's graph is CAPTURED
     (device tensors the graph rewrites on every replay) are kept per
-    width, and every replay of it appends clones of them, as an eager
+    key, and every replay of it appends clones of them, as an eager
     forward appends fresh ones; the capture's warm-up forward appends the
     same number first, which are dropped."""
     graphs = eng.graphs
-    inner_capture, inner_replay = graphs._capture, graphs.replay
+    inner_capture, inner_run = graphs.capture, graphs.run
     kept = {}
 
     def clone(x):
         return tuple(t.clone() for t in x) if isinstance(x, tuple) \
             else x.clone()
 
-    def capture(shape):
+    def capture(key, forward, inputs):
+        if key in graphs.steps:
+            return inner_capture(key, forward, inputs)
         sinks = [get() for get in ROUTE_SINKS]
         marks = [len(sink) for sink in sinks]
-        step = inner_capture(shape)
-        kept[shape[1]] = []
+        step = inner_capture(key, forward, inputs)
+        kept[key] = []
         for sink, mark in zip(sinks, marks):
             new = sink[mark:]
             del sink[mark:]
-            kept[shape[1]].append(new[len(new) // 2:])
+            kept[key].append(new[len(new) // 2:])
         return step
 
-    def replay(tokens, use_kernel):
-        out = inner_replay(tokens, use_kernel)
-        for get, entries in zip(ROUTE_SINKS, kept[tokens.shape[1]]):
+    def run(key, forward, inputs):
+        out = inner_run(key, forward, inputs)
+        for get, entries in zip(ROUTE_SINKS, kept[key]):
             get().extend(clone(x) for x in entries)
         return out
-    graphs._capture, graphs.replay = capture, replay
+    graphs.capture, graphs.run = capture, run
 
 
 class RouteRecorder:
     """While a run serves, wraps the port's ``route_topk`` and the engine's
     three forward entries — ``decode_slots`` (decode and verify forwards,
-    captured or not), ``_decode_forward`` called from a prefill (the
-    prefix-hit suffix forward) and ``_prefill_scratch`` (prompt prefill) —
-    to keep,
+    captured or not), ``_suffix_forward`` (the prefix-hit suffix
+    forward) and ``_prefill_graph`` (prompt prefill over the (batch,
+    width) grid, of whose rows the group's are kept) — to keep,
     for every forward of an MoE model, each row's request and first
     context position and every layer's routing: the chosen experts
     (sorted) and the router margin between the k-th and (k+1)-th expert
@@ -1237,7 +1263,6 @@ class RouteRecorder:
         self.mod, self.inner, self.loop = moe_mod, moe_mod.route_topk, loop
         self.calls, self.forwards, self.pending = [], [], []
         self.admitting = False
-        self.in_decode = False
         self.saved = ()
 
     def __enter__(self):
@@ -1250,35 +1275,29 @@ class RouteRecorder:
                                torch.log(top[:, k - 1] / top[:, k])))
             return weights, idx, probs
         eng, loop = self.loop.engine, self.loop
-        inner_decode, inner_scratch = eng.decode_slots, eng._prefill_scratch
-        inner_forward = eng._decode_forward
+        inner_decode = eng.decode_slots
+        inner_suffix, inner_graph = eng._suffix_forward, eng._prefill_graph
         inner_admit = loop.admit
 
         def decode_slots(tokens):
             offsets = eng.slot_lens_host.copy()
             self.calls.clear()
-            self.in_decode = True
-            try:
-                out = inner_decode(tokens)
-            finally:
-                self.in_decode = False
+            out = inner_decode(tokens)
             self._add(list(range(tokens.shape[0])), offsets, tokens.shape[1])
             return out
 
-        def decode_forward(tokens):
-            if self.in_decode:          # an eager decode_slots records it
-                return inner_forward(tokens)
+        def suffix_forward(tokens):
             offsets = eng.slot_lens_host.copy()
             self.calls.clear()
-            out = inner_forward(tokens)
+            out = inner_suffix(tokens)
             self._add(list(range(tokens.shape[0])), offsets, tokens.shape[1])
             return out
 
-        def prefill_scratch(toks, width):
+        def prefill_graph(toks, width):
             self.calls.clear()
-            out = inner_scratch(toks, width)
-            rows = sorted(toks)
-            self._add(rows, {s: 0 for s in rows}, width)
+            out = inner_graph(toks, width)
+            rows = list(range(eng.batch))
+            self._add(rows, dict.fromkeys(rows, 0), width, only=sorted(toks))
             return out
 
         def admit():
@@ -1291,10 +1310,10 @@ class RouteRecorder:
                 self._keep(slots, offsets, route)
             self.pending.clear()
             return admitted
-        self.saved = (inner_decode, inner_scratch, inner_forward, inner_admit)
+        self.saved = (inner_decode, inner_suffix, inner_graph, inner_admit)
         self.mod.route_topk = route
-        eng.decode_slots, eng._prefill_scratch = decode_slots, prefill_scratch
-        eng._decode_forward = decode_forward
+        eng.decode_slots = decode_slots
+        eng._suffix_forward, eng._prefill_graph = suffix_forward, prefill_graph
         loop.admit = admit
         ROUTE_SINKS.append(self._sink)
         return self
@@ -1306,10 +1325,12 @@ class RouteRecorder:
         ROUTE_SINKS.remove(self._sink)
         self.mod.route_topk = self.inner
         eng = self.loop.engine
-        (eng.decode_slots, eng._prefill_scratch, eng._decode_forward,
+        (eng.decode_slots, eng._suffix_forward, eng._prefill_graph,
          self.loop.admit) = self.saved
 
-    def _add(self, slots, offsets, n):
+    def _add(self, slots, offsets, n, only=None):
+        """Keep the routing of a forward over rows ``slots`` (of ``only``
+        among them where given)."""
         calls, self.calls = self.calls, []
         if not calls:
             return
@@ -1317,6 +1338,9 @@ class RouteRecorder:
         route = (torch.stack([c[0] for c in calls]).reshape(layers, rows, n,
                                                             -1),
                  torch.stack([c[1] for c in calls]).reshape(layers, rows, n))
+        if only is not None:
+            pick = [slots.index(s) for s in only]
+            route, slots = (route[0][:, pick], route[1][:, pick]), only
         if self.admitting:       # the admitted slots are not active yet
             self.pending.append((slots, offsets, route))
         else:
@@ -1412,7 +1436,8 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     arguments), counting every kernel's launches from 0; ``prepare(loop)``
     attaches further recorders before the run; ``use_kernel`` False runs
     the plain versions (and expects no launch); ``capture`` False runs the
-    decode forwards eagerly instead of replaying CUDA graphs.  Records the
+    same forwards eagerly instead of replaying CUDA graphs.  The prompts'
+    prefill graphs are captured before the clock starts.  Records the
     run's tok/s in ``SPEEDS``.  Returns (streams, launches, top-2 gap
     record, routing record)."""
     DecodeEngine, PagedKVConfig, ServingLoop, ops, moe_ops, moe, scan_ops = \
@@ -1422,7 +1447,7 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     eng = DecodeEngine(cfg, params, batch=batch, max_len=max_len,
                        paged=paged, device="cuda", use_kernel=use_kernel,
                        capture=capture)
-    if eng.graphs is not None:
+    if capture:
         capture_routes(eng)
     loop = ServingLoop(eng, mode=mode, **(loop_kw or {}))
     rec = record_gaps(loop)
@@ -1445,6 +1470,13 @@ def serve_run(mods, cfg, params, prompts, *, block_size, mode, card,
     moe_ops.align_block_size = align
     try:
         with recorder:
+            # the prefill graphs of the prompts' buckets (an SSM model:
+            # lengths) are captured before the clock, decode widths at
+            # their first use
+            eng.warm_prefill(sorted({len(p) if eng.recurrent
+                                     else eng.prefill_bucket(len(p))
+                                     for p in prompts}))
+            torch.cuda.synchronize()
             t0 = time.perf_counter()
             results = loop.run()
             torch.cuda.synchronize()
@@ -1802,6 +1834,282 @@ def check_capture(mods, cfg, params, prompts, card) -> None:
         del engs
 
 
+PREFILL = {}                 # model -> the prefill_capture phase's numbers
+#: the prefill buckets timed eager vs replayed (an SSM model: lengths)
+PREFILL_TIMED = (16, 64, 256)
+PREFILL_TIMED_SSM = (16, 48)
+#: single-request tokens in prefill_capture's greedy_generate comparison
+SINGLE_TOKENS = 16
+
+
+def _engine_state(eng) -> list:
+    """Every cache tensor and the slot lengths, cloned."""
+    return ([t.clone() for t in _leaves(eng.cache)]
+            + [eng.slot_lens.clone(), torch.as_tensor(eng.slot_lens_host)])
+
+
+def _bitwise(a, b) -> bool:
+    return all(x.shape == y.shape and torch.equal(x, y)
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def _prefill_ms(eng, prompts, slots, iters=3) -> float:
+    """Median host ms of ``prefill_slots`` of ``prompts`` into ``slots``
+    (each released first), synchronized."""
+    out = []
+    for _ in range(iters):
+        for s in slots:
+            eng.release_slot(s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.prefill_slots(dict(zip(slots, prompts)))
+        torch.cuda.synchronize()
+        out.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(out)
+
+
+def prefill_capture(mods, cfg, params, prompts, card, pools=("dense",),
+                    single=False) -> None:
+    """The captured prefill against eager at full size, on the engine's
+    admissions: a captured engine (every forward a graph replay) beside
+    a ``capture=False`` one (the same forwards, the (batch, width) grid,
+    row flags and scratch included, launched eagerly), on the same
+    weights.  Admissions: all four slots at once
+    (attention models: one bucket-64 group; SSM models: exact-length
+    groups 40 and 48), then slots 1 and 3 released and re-admitted with
+    other prompts (the paged engine: slot 1's prompt shares 32 tokens,
+    two pages, with slot 0's, so it runs the prefix-hit suffix forward;
+    an SSM model: lengths 40 and 33), then decode steps with commits.
+    After every call, held bitwise against eager: each admitted slot's
+    (logits, hidden), every cache tensor and the slot lengths (the decode
+    steps' logits and hidden too), and the launches per call equal.
+    Printed, not held: ``row_count_witness`` of the first admission's
+    first group.  With ``single``:
+    batch-1 ``greedy_generate`` of ``SINGLE_TOKENS`` tokens and a
+    ``peek_step`` / ``commit`` / ``decode_step`` sequence, captured
+    against eager: streams equal, logits and cache bitwise.  Prints per
+    bucket the eager and the replayed prefill ms (median of 3), the
+    graphs captured and seconds spent capturing, the scratch cache's
+    bytes, and the memory peak with the decode graphs alone and with the
+    prefill graphs.  Every launch made here is taken back out of the
+    counts (``Uncounted``)."""
+    from repro_torch.models.transformer import has_ssm
+    from repro_torch.serving.capture import launch_counts
+    DecodeEngine, PagedKVConfig = mods[:2]
+    t_phase = time.perf_counter()
+    recurrent = has_ssm(cfg)
+    rng = np.random.default_rng(11)
+    if recurrent:
+        first = {s: prompts[s][:(48, 40)[s % 2]] for s in range(4)}
+        second = {1: prompts[5][:40], 3: prompts[4][:33]}
+    else:
+        first = {s: prompts[s] for s in range(4)}
+        second = {1: prompts[5], 3: prompts[4]}
+    failed = []
+    for pool in pools:
+        gc.collect()
+        paged = PagedKVConfig(block_size=16) if pool == "paged" else None
+        engs = [DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
+                             paged=paged, device="cuda", capture=c)
+                for c in (True, False)]
+
+        def call(what, fn):
+            outs, counts = [], []
+            for eng in engs:
+                before = launch_counts()
+                with Uncounted(mods):
+                    out = fn(eng)
+                    torch.cuda.synchronize()
+                    after = launch_counts()
+                counts.append({k: after[k] - before[k] for k in after})
+                outs.append((out, _engine_state(eng)))
+            res = (_bitwise(outs[0][0], outs[1][0]),
+                   _bitwise(outs[0][1], outs[1][1]), counts[0] == counts[1])
+            print(f"prefill_capture {cfg.name} {pool} {what}: captured vs "
+                  f"eager: outputs bitwise {res[0]}, cache and slot lengths "
+                  f"bitwise {res[1]}, launches equal {res[2]} (launches "
+                  f"{counts[0]}) [{card}]")
+            if not all(res):
+                failed.append(f"{pool} {what}: {res}")
+
+        def admit(group):
+            def fn(eng):
+                got = eng.prefill_slots(group)
+                return [t for s in sorted(got) for t in got[s]]
+            return fn
+
+        def decode(toks, adv):
+            def fn(eng):
+                logits, cache, hidden = eng.decode_slots(toks)
+                out = [logits.clone(), hidden.clone()]
+                eng.commit_slots(cache, adv)
+                return out
+            return fn
+        call("admit slots 0-3", admit(first))
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 1)),
+                               device="cuda")
+        call("decode n=1", decode(toks, np.ones(4, np.int64)))
+        for eng in engs:
+            for s in second:
+                eng.release_slot(s)
+        call("re-admit slots 1, 3"
+             + (" (slot 1 hits 32 cached tokens)" if paged else ""),
+             admit(second))
+        if paged:
+            hits = [e for e in engs[0].prefill_log
+                    if e.get("cached_tokens", 0) > 0]
+            if len(hits) != 1 or hits[0]["slots"] != [1]:
+                raise AssertionError(f"{cfg.name} paged: no prefix hit "
+                                     f"{engs[0].prefill_log}")
+        for n in (3, 1):
+            toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, n)),
+                                   device="cuda")
+            call(f"decode n={n}", decode(toks, np.array([n, 1, 0, n])))
+        del engs
+    if single:
+        _single_capture(mods, cfg, params, prompts, card)
+    with Uncounted(mods):                  # two prompts of one length
+        witness = row_count_witness(cfg, params, np.stack(
+            [first[0], first[2]]), 48 if recurrent else 64)
+    print(f"prefill_capture {cfg.name} row count: {witness} [{card}]")
+    if failed:
+        raise AssertionError(f"{cfg.name}: the captured forwards leave "
+                             f"eager in {failed}")
+    # eager vs replayed prefill ms per bucket, and what the graphs cost
+    gc.collect()
+    torch.cuda.empty_cache()
+    widths = PREFILL_TIMED_SSM if recurrent else PREFILL_TIMED
+    eager = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
+                         device="cuda", capture=False)
+    captured = DecodeEngine(cfg, params, batch=4, max_len=MAX_LEN,
+                            device="cuda", capture=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    captured.warm_decode(CAPTURE_WIDTHS)
+    torch.cuda.synchronize()
+    decode_peak = torch.cuda.max_memory_allocated() - base
+    decode_held = torch.cuda.memory_allocated() - base
+    captured.warm_prefill(widths)
+    torch.cuda.synchronize()
+    prefill_peak = torch.cuda.max_memory_allocated() - base
+    prefill_held = torch.cuda.memory_allocated() - base
+    scratch = sum(t.numel() * t.element_size()
+                  for t in _leaves(captured.scratch))
+    times = {}
+    with Uncounted(mods):
+        for w in widths:
+            group = [rng.integers(0, cfg.vocab_size, size=w)
+                     for _ in range(4)]
+            times[w] = tuple(_prefill_ms(e, group, range(4))
+                             for e in (eager, captured))
+    summary = captured.graphs.summary()
+    print(f"prefill_capture {cfg.name}: prefill of 4 slots, eager vs "
+          f"replayed ms by {'length' if recurrent else 'bucket'}: "
+          + ", ".join(f"{w}: {a:.3f} / {b:.3f}"
+                      for w, (a, b) in times.items())
+          + f"; graphs captured (count, capture s): "
+          + ", ".join(f"{k} {n} ({t:.3f} s)" for k, (n, t) in
+                      summary.items())
+          + f"; scratch cache {scratch / 1e6:.3f} MB; memory above the "
+          f"engine: decode graphs peak {decode_peak / 1e9:.3f} GB (held "
+          f"{decode_held / 1e9:.3f}), with the prefill graphs peak "
+          f"{prefill_peak / 1e9:.3f} GB (held {prefill_held / 1e9:.3f}); "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}]")
+    PREFILL[cfg.name] = {"ms": times, "graphs": summary,
+                         "scratch_bytes": scratch,
+                         "decode_graphs_peak_bytes": decode_peak,
+                         "prefill_graphs_peak_bytes": prefill_peak}
+    del eager, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def row_count_witness(cfg, params, group: np.ndarray, width: int,
+                      grid_rows=4) -> str:
+    """Whether the card's products round by the number of rows they
+    cover.  Each (d_in, d_out) projection of the first layer over
+    ``group``'s rows x ``width`` token rows against the same rows of its
+    product over ``grid_rows`` x ``width``; and the prefill forward of
+    ``group`` (prompts of one length, right-padded to ``width``) alone
+    against the same rows of the forward over the (grid_rows, width)
+    grid, the other rows zeros: the last prompt positions' logits.
+    Returns a printable summary (bitwise equal or the largest
+    difference)."""
+    from repro_torch.models.transformer import forward, init_cache
+    table = params["embed"]["table"]
+    rows, p = group.shape
+    gen = torch.Generator(table.device).manual_seed(5)
+    same, mats, gemm_gap = 0, 0, 0.0
+    for sub in params["segments"][0].values():
+        for w in (sub.values() if isinstance(sub, dict) else ()):
+            if w.dim() != 3:
+                continue
+            x = torch.randn((grid_rows * width, w.shape[1]), generator=gen,
+                            device=table.device).to(w.dtype)
+            part, whole = x[:rows * width] @ w[0], (x @ w[0])[:rows * width]
+            mats += 1
+            same += int(torch.equal(part, whole))
+            gemm_gap = max(gemm_gap, float((part.float()
+                                            - whole.float()).abs().max()))
+    last = []
+    for n in (rows, grid_rows):
+        toks = np.zeros((n, width), np.int64)
+        toks[:rows, :p] = group
+        cache = init_cache(cfg, n, width, table.dtype, table.device)
+        logits = forward(params, cfg,
+                         {"tokens": torch.as_tensor(toks, device=table.device)},
+                         mode="prefill", cache=cache,
+                         use_kernel=table.device.type == "cuda")[0]
+        last.append(logits[:rows, p - 1].float())
+    gap = float((last[0] - last[1]).abs().max())
+    return (f"{same} of {mats} first-layer products over {rows * width} "
+            f"token rows bitwise the same rows of the product over "
+            f"{grid_rows * width} (largest difference {gemm_gap:.4g}); "
+            f"the prefill of {rows} prompts of {p} tokens in a ({rows}, "
+            f"{width}) grid vs a ({grid_rows}, {width}) one: logits bitwise "
+            f"{gap == 0.0}, largest difference {gap:.4g}")
+
+
+def _single_capture(mods, cfg, params, prompts, card) -> None:
+    """Batch-1 single-request drivers captured against eager: the
+    greedy_generate streams equal, then prefill, ``peek_step`` of 5
+    positions, ``commit`` (3 of them; an SSM model all 5), ``decode_step``
+    of 1: logits (and the prefill's and the peek's hidden) bitwise, then
+    the cache bitwise and ``cache_len`` equal."""
+    DecodeEngine = mods[0]
+    engs = [DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN,
+                         device="cuda", capture=c) for c in (True, False)]
+    prompt = torch.as_tensor(prompts[0][None], device="cuda")
+    with Uncounted(mods):
+        streams = [e.greedy_generate(prompt, SINGLE_TOKENS) for e in engs]
+        same = torch.equal(streams[0], streams[1])
+        draft = torch.as_tensor(prompts[1][None, :5], device="cuda")
+        adv = 5 if engs[0].recurrent else 3
+        outs = []
+        for eng in engs:
+            logits = eng.prefill(prompt)
+            got = [logits.clone(), eng.last_hidden.clone()]
+            logits, cache, hidden = eng.peek_step(draft)
+            got += [logits.clone(), hidden.clone()]
+            eng.commit(cache, adv)
+            got.append(eng.decode_step(draft[:, :1]).clone())
+            outs.append((got, [t.clone() for t in _leaves(eng.cache)],
+                         eng.cache_len))
+        steps = [_bitwise(outs[0][0], outs[1][0]),
+                 _bitwise(outs[0][1], outs[1][1]),
+                 outs[0][2] == outs[1][2]]
+    keys = sorted(engs[0].graphs.steps)
+    print(f"prefill_capture {cfg.name} single request (batch 1): "
+          f"greedy_generate streams of {SINGLE_TOKENS} equal {same}; "
+          f"prefill, peek_step 5, commit {adv}, decode_step 1: logits and "
+          f"hidden bitwise {steps[0]}, cache bitwise {steps[1]}, cache_len "
+          f"equal {steps[2]}; graphs {keys} [{card}]")
+    if not (same and all(steps)):
+        raise AssertionError(f"{cfg.name}: the captured single-request "
+                             "drivers leave eager")
+
+
 def calibration_table(mods, cfg, params, card) -> dict:
     """The paper's measurement on the card: ``calibrate_engine`` (wall
     clock: the CAPTURED decode step, CUDA events) on a dense 4-slot
@@ -1902,13 +2210,16 @@ def model_params(arch, layers=None):
 
 def serve_model(mods, arch, card, forward_rtol,
                 dense_speculative=False, layers=None,
-                long_context=False) -> dict:
+                long_context=False, prefill_pools=(),
+                prefill_single=False) -> dict:
     """Phase 4 for one model: warm-up, the three serving runs (and with
     ``dense_speculative`` a fourth, whose verify forwards of width 16 run
     the dense attention mode), the stream comparisons, the full-size
     forward check and the profile.  ``layers`` cuts the depth (full
     width); ``long_context`` adds the runs past a sliding window
-    (``serve_long``).  Returns the launches by run."""
+    (``serve_long``); ``prefill_pools`` / ``prefill_single`` run
+    ``prefill_capture`` on those caches (and the single-request
+    drivers).  Returns the launches by run."""
     cfg, params = model_params(arch, layers)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=48) for _ in range(8)]
@@ -1916,6 +2227,9 @@ def serve_model(mods, arch, card, forward_rtol,
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
     check_capture(mods, cfg, params, prompts, card)
+    if prefill_pools or prefill_single:
+        prefill_capture(mods, cfg, params, prompts, card, prefill_pools,
+                        prefill_single)
     greedy, l1, rec, routes = serve_run(mods, cfg, params, prompts,
                                         block_size=16, mode="greedy",
                                         card=card)
@@ -2294,6 +2608,7 @@ def solo_diffusion(mods, cfg, params, prompts, block, card,
     DecodeEngine, ops, moe, diff_mod = mods[0], mods[3], mods[5], mods[7]
     eng = DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN, device="cuda",
                        use_kernel=use_kernel)
+    capture_routes(eng)
     cur = {}
     trace = DiffusionTrace(diff_mod, moe, cfg.n_layers,
                            lambda: {0: (cur["rid"], eng.cache_len)})
@@ -2485,7 +2800,7 @@ def diffusion_run(mods, cfg, params, prompts, card, *, block_size, block,
 
 
 def serve_parallel(mods, arch, card, forward_rtol, dense_block=None,
-                   f32_layers=None) -> dict:
+                   f32_layers=None, prefill_pools=()) -> dict:
     """Phase 4 for a parallel-decoding validation model: paged greedy,
     paged MTP (held against greedy), paged diffusion at the budget's
     width and, with ``dense_block``, dense diffusion at that block; the
@@ -2493,7 +2808,8 @@ def serve_parallel(mods, arch, card, forward_rtol, dense_block=None,
     the same weights in float32 (at ``f32_layers`` layers where given)
     serve the diffusion runs again through the plain versions (the
     kernels take bf16 only), where the solo comparison is held.
-    Returns the launches by run."""
+    ``prefill_pools``: ``prefill_capture`` on those caches.  Returns the
+    launches by run."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     from repro_torch.serving import init_mtp_heads
@@ -2514,6 +2830,8 @@ def serve_parallel(mods, arch, card, forward_rtol, dense_block=None,
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
     check_capture(mods, cfg, params, prompts, card)
+    if prefill_pools:
+        prefill_capture(mods, cfg, params, prompts, card, prefill_pools)
     greedy, l1, rec, routes = serve_run(mods, cfg, params, prompts,
                                         block_size=16, mode="greedy",
                                         card=card)
@@ -2616,7 +2934,7 @@ def solo_greedy(mods, cfg, params, prompts, card, use_kernel=True
     return streams, rec
 
 
-def serve_ssm(mods, arch, card, forward_rtol) -> dict:
+def serve_ssm(mods, arch, card, forward_rtol, prefill_check=False) -> dict:
     """Phase 4 for a model with recurrent state, dense greedy only.  The
     bf16 model serves 8 requests on 4 slots (every slot reused): the main
     path, launches counted.  Its streams against each request's batch-1
@@ -2634,7 +2952,9 @@ def serve_ssm(mods, arch, card, forward_rtol) -> dict:
     which takes bf16 only, so the forward is held kernel vs plain in bf16
     and the f32 runs go through the plain versions; one captured step is
     also timed beside the weight bound and the Mamba2 loop's share
-    (``mamba2_step``).  Returns the launches by run."""
+    (``mamba2_step``).  ``prefill_check``: ``prefill_capture`` on the
+    dense cache, the single-request drivers included.  Returns the
+    launches by run."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     cfg = get_config(arch)
@@ -2650,6 +2970,8 @@ def serve_ssm(mods, arch, card, forward_rtol) -> dict:
     serve_run(mods, cfg, params, prompts[:1], block_size=0,
               mode="greedy", card=card)        # warm-up
     check_capture(mods, cfg, params, prompts, card)
+    if prefill_check:
+        prefill_capture(mods, cfg, params, prompts, card, single=True)
     runs = {"dense_greedy_bf16": ssm_checks(
         mods, cfg, params, prompts, card, forward_rtol, held=False,
         forward_held=not f32_kernel)}
@@ -3003,6 +3325,18 @@ def print_summary(card) -> None:
             f"L={r['ell']}: {r['measured']} / {r['analytic']} "
             f"({r['limiting']}) / {r['n_idle']:.1f} / {r['noise']:.4f}"
             for r in rows))
+    print(f"summary: prefill of 4 slots, eager (capture=False) vs "
+          f"replayed ms; graphs captured and capture seconds; the prefill "
+          f"graphs' memory [{card}]")
+    for arch, r in PREFILL.items():
+        print(f"  {arch}: " + ", ".join(
+            f"{w}: {a:.3f} / {b:.3f}" for w, (a, b) in r["ms"].items())
+            + "; " + ", ".join(f"{k} {n} ({t:.3f} s)"
+                               for k, (n, t) in r["graphs"].items())
+            + f"; scratch {r['scratch_bytes'] / 1e6:.1f} MB, peak above the "
+            f"engine {r['decode_graphs_peak_bytes'] / 1e9:.3f} GB with the "
+            f"decode graphs, {r['prefill_graphs_peak_bytes'] / 1e9:.3f} GB "
+            f"with the prefill graphs too")
     print(f"summary: device memory peak by model phase "
           f"(torch.cuda.max_memory_allocated) [{card}]")
     for arch, gb in MEMORY.items():
@@ -3418,6 +3752,7 @@ def plain_kernels(ops, moe_ops):
 
     def moe_plain(*args, blocks=None, **kw):
         return moe_ops.grouped_ffn_ref(*args, **kw)
+    moe_plain.launches = 0         # a captured forward reads the counter
     attn_mod.decode_attention_ragged = ops.decode_attention_ref
     moe_ops.grouped_ffn_padded = moe_plain
     try:
@@ -3834,7 +4169,7 @@ def dist_phase(moe, card) -> None:
 # and the aligned-rows decode-attention entry
 # ---------------------------------------------------------------------------
 
-TP_LAYERS = 8             # full-width stablelm_3b cut to 8 of its 32 layers
+TP_LAYERS = 4             # full-width stablelm_3b cut to 4 of its 32 layers
 TP_STEPS = 3
 TP_LOSS_RTOL = 2e-3
 TP_NORM_RTOL = 1e-2
@@ -3846,7 +4181,7 @@ TP_MESH = {"tp": (1, 2), "fsdp": (2, 1)}
 # the fsdp and fsdp_decode runs, at once: they move ~27 GB and ~50 GB
 # through gloo, which carries ~1 GB/s between two processes on one card
 FSDP_PHASE_S = 150.0
-FSDP_DECODE_LAYERS = 8    # full-width falcon_mamba_7b cut to 8 of its 64
+FSDP_DECODE_LAYERS = 4    # full-width falcon_mamba_7b cut to 4 of its 64
 FSDP_ROWS, FSDP_PROMPT, FSDP_DECODES = 4, 48, 8
 FSDP_DECODE_RTOL = 1e-4   # normwise, f32
 TP = {}
@@ -4049,7 +4384,7 @@ def tp_worker(rank: int, port: int, out: str, device: str = "cuda",
 
 def tp_train(card, device: str = "cuda", reduced: bool = False) -> None:
     """Sharded training on the card: the one-process ``train_step`` on
-    8-layer full-width stablelm_3b, then the same steps from the same
+    4-layer full-width stablelm_3b, then the same steps from the same
     init and batches by two ranks (``tp_worker``) that split every
     attention head, ``d_ff`` column and vocabulary block between them
     (``tp``), held against it.  Leaves the one process's final params in
@@ -4841,18 +5176,23 @@ def main() -> int:
             scan_ops, diff_mod)
     runs = {}
     for arch, serve, rtol in (
-            ("stablelm_3b", functools.partial(serve_model,
-                                              dense_speculative=True),
+            ("stablelm_3b", functools.partial(
+                serve_model, dense_speculative=True,
+                prefill_pools=("dense", "paged"), prefill_single=True),
              FORWARD_RTOL),
-            ("granite_moe_3b_a800m", serve_model, MOE_FORWARD_RTOL),
-            ("falcon_mamba_7b", serve_ssm, SSM_FORWARD_RTOL),
-            ("wedlm8b_like", functools.partial(serve_parallel,
-                                               dense_block=16),
+            ("granite_moe_3b_a800m", functools.partial(
+                serve_model, prefill_pools=("dense",)), MOE_FORWARD_RTOL),
+            ("falcon_mamba_7b", functools.partial(serve_ssm,
+                                                  prefill_check=True),
+             SSM_FORWARD_RTOL),
+            ("wedlm8b_like", functools.partial(
+                serve_parallel, dense_block=16, prefill_pools=("paged",)),
              FORWARD_RTOL),
             ("llada_mini_like", functools.partial(
                 serve_parallel, f32_layers=LLADA_F32_LAYERS),
              MOE_FORWARD_RTOL),
-            ("minicpm3_4b", serve_model, FORWARD_RTOL),
+            ("minicpm3_4b", functools.partial(
+                serve_model, layers=MINICPM3_LAYERS), FORWARD_RTOL),
             ("mixtral_8x22b", functools.partial(
                 serve_model, layers=MIXTRAL_LAYERS, long_context=True),
              MOE_FORWARD_RTOL),

@@ -55,9 +55,10 @@ a checkpoint whose params do not fit ``--arch``:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm_3b \
       --ckpt-dir ckpt --requests 8 --kv-block-size 16
 Prompts come from a numpy generator seeded by ``--seed``.  The NFP budget
-of the ``--hardware`` spec sizes every forward.  On the card,
-``decode_slots`` replays a CUDA graph per width (``--no-capture``: the
-eager forward).
+of the ``--hardware`` spec sizes every forward.  On the card every
+forward replays a CUDA graph (``serving.capture``; ``--no-capture``: the
+eager forwards), and the decode widths and prefill buckets a run can use
+are captured before its clock starts.
 
 ``serve(args)`` returns what it served: the ``params``, the ``prompts``,
 the ``streams`` and ``stats`` (and for the scheduler its ``loop``), and
@@ -203,14 +204,36 @@ def calibration_controller(args, eng) -> BudgetController:
     return BudgetController(table=table)
 
 
-def warm(loop) -> None:
+def prefill_widths(eng: DecodeEngine, lengths, tokens: int) -> list:
+    """The slotted prefill graphs a run of prompts of ``lengths`` x
+    ``tokens`` new tokens may replay: an SSM model's exact prompt lengths;
+    otherwise every bucket from 8 up to the longest context a preempted
+    request is re-admitted with, which also covers a prefix hit's
+    suffix.  An SSM model re-admits a preempted request at its exact
+    context (prompt and the tokens generated so far), a length not
+    warmed here: that graph is captured at its first use, inside the
+    run's clock."""
+    if eng.recurrent:
+        return sorted(set(int(n) for n in lengths))
+    top = eng.prefill_bucket(min(eng.max_len, max(lengths) + tokens))
+    widths = [8]
+    while widths[-1] < top:
+        widths.append(eng.prefill_bucket(2 * widths[-1]))
+    return widths
+
+
+def warm(loop, lengths, tokens: int) -> None:
     """Capture every decode width the loop's adapter can ask for (up to
-    ``max_width`` + 1 positions a row) before the clock starts."""
+    ``max_width`` + 1 positions a row) and the prefill graphs of
+    ``prefill_widths`` before the clock starts."""
     t0 = time.perf_counter()
-    loop.engine.warm_decode(range(1, loop.max_width + 2))
-    if loop.engine.capture:
-        print(f"captured {len(loop.engine.graphs.steps)} decode widths in "
-              f"{time.perf_counter() - t0:.1f}s")
+    eng = loop.engine
+    eng.warm_decode(range(1, loop.max_width + 2))
+    eng.warm_prefill(prefill_widths(eng, lengths, tokens))
+    if eng.capture:
+        print("captured " + ", ".join(
+            f"{n} {kind}" for kind, (n, _) in eng.graphs.summary().items())
+            + f" graphs in {time.perf_counter() - t0:.1f}s")
 
 
 def serve_requests(args, cfg, params, device) -> dict:
@@ -224,7 +247,7 @@ def serve_requests(args, cfg, params, device) -> dict:
         refine_steps=args.refine_steps, controller=controller,
         mtp_heads=(_heads(args, cfg, device) if args.serve_mode == "mtp"
                    else None))
-    warm(loop)
+    warm(loop, [args.prompt_len], args.tokens)
     rng = np.random.default_rng(args.seed)
     n_requests = args.requests if args.requests is not None else REQUESTS
     prompts = {}
@@ -328,7 +351,8 @@ def trace_replay(args, cfg, params, device) -> dict:
                    else None),
         admission=AdmissionConfig(max_waiting=args.max_waiting or None,
                                   preemption=True))
-    warm(loop)
+    warm(loop, [len(r.prompt) for r in trace.requests],
+         max((r.max_tokens for r in trace.requests), default=0))
     for fn in KERNELS.values():
         fn.launches = 0
     report = replay_trace(loop, trace)

@@ -26,12 +26,26 @@ exact prompt lengths (bucket padding would run through the recurrence)
 and every prefill starts from a zero state, so a reused slot carries
 nothing of its previous request.  They serve on the dense cache only.
 
-On a CUDA engine ``decode_slots`` replays a captured CUDA graph per
-decode width (``serving.capture``; ``capture=False`` keeps the eager
-forward).  Prefill and the single-request drivers stay eager.  The
-captured step reads the tokens, ``slot_lens``, the block tables and the
-cache from static buffers, so every update to them is an in-place copy;
-its outputs are valid until the next ``decode_slots``.
+On a CUDA engine every forward replays a captured CUDA graph, one per
+key of the reference's jitted programs (``serving.capture``;
+``capture=False``, the CPU path, runs the same forwards over the same
+static buffers eagerly, ``EagerGraphs``): ``decode_slots`` per width;
+the slotted prefill per (batch, width): the (batch, width) token grid,
+as the reference's, prefilled into one static scratch cache at (batch,
+max_len) and, on a dense engine, the group's rows taken into the cache
+inside the forward under a (batch,) row flag (the reference's
+``_row_mask`` selection over the first ``width`` positions); the paged
+prefix-hit suffix forward at its bucket width through the decode graph; ``prefill`` per (b, prompt_len); and
+``decode_step`` / ``peek_step`` per (b, n), which read the committed
+length from ``cache_len_device``, filled from the host ``cache_len``
+before each forward.  The paged engine's copy-on-write page copy and
+its scatter of a prefill's K/V into the pool stay eager: one indexed
+copy per pool leaf, its index arrays padded to a power of two as the
+reference's.  A graph reads its inputs, ``slot_lens``, the block tables,
+the scratch and the cache from static buffers, so every update to them
+is an in-place copy; its outputs live until the next forward of the
+same key, so the engine clones what a caller keeps (a prefill's rows,
+``last_hidden``).
 """
 from __future__ import annotations
 
@@ -49,7 +63,7 @@ from repro_torch.core.nfp import parallelism_budget
 from repro_torch.models.transformer import (forward, has_ssm, init_cache,
                                             init_paged_cache, make_segments,
                                             segment_kv, segment_states)
-from repro_torch.serving.capture import DecodeGraphs
+from repro_torch.serving.capture import DecodeGraphs, EagerGraphs
 from repro_torch.serving.paged import BlockManager, PagedKVConfig
 
 Tensor = torch.Tensor
@@ -72,12 +86,29 @@ def _copy_pool_blocks(cache: Dict, src: Tensor, dst: Tensor) -> None:
 def _scatter_prefill(cache: Dict, scratch: Dict, flat_idx: Tensor,
                      rows: Tensor, cols: Tensor) -> None:
     """Move freshly prefilled KV from the dense scratch cache into pool
-    pages: scratch[(row, col)] -> pool_flat[flat_idx], per layer."""
+    pages: scratch[(row, col)] -> pool_flat[flat_idx], per layer.
+    Padding entries target the trash page (duplicate-index writes there
+    are harmless)."""
     for seg, sseg in zip(cache["segments"], scratch["segments"]):
         for key, pool in seg.items():
             flat = pool.view((pool.shape[0], pool.shape[1] * pool.shape[2])
                              + tuple(pool.shape[3:]))
             flat[:, flat_idx] = sseg[key][:, rows, cols]
+
+
+def pad_scatter(flats: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                trash_slot: int) -> Tuple[np.ndarray, ...]:
+    """The scatter's index arrays padded to a power of two (at least 8),
+    the reference's compile bucket: each pad entry copies the first
+    entry's scratch position to ``trash_slot``, a slot of the trash page,
+    which no table reads."""
+    m = 8
+    while m < len(rows):
+        m *= 2
+    pad = m - len(rows)
+    return (np.pad(flats, (0, pad), constant_values=trash_slot),
+            np.pad(rows, (0, pad), constant_values=rows[0]),
+            np.pad(cols, (0, pad), constant_values=cols[0]))
 
 
 @dataclass
@@ -89,9 +120,10 @@ class DecodeEngine:
     shared blocks.  The single-request drivers stay dense.
 
     ``device`` defaults to ``cuda`` (raising where there is none);
-    ``use_kernel`` and ``capture`` (``decode_slots`` replays a CUDA graph
-    per width) default to True exactly when the device is CUDA, and
-    ``capture=True`` elsewhere raises.  ``params`` must already live on
+    ``use_kernel`` and ``capture`` (every forward replays a CUDA graph per
+    key; without it the same forwards run eagerly) default to True
+    exactly when the device is CUDA, and ``capture=True`` elsewhere
+    raises.  ``params`` must already live on
     the device."""
 
     cfg: ArchConfig
@@ -121,8 +153,8 @@ class DecodeEngine:
             self.use_kernel = self.device.type == "cuda"
         if self.capture is None:
             self.capture = self.device.type == "cuda"
-        self.graphs = (DecodeGraphs(self.device, self._decode_forward)
-                       if self.capture else None)
+        self.graphs = (DecodeGraphs if self.capture else EagerGraphs)(
+            self.device, self._decode_forward)
         table = self.params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine "
@@ -158,6 +190,14 @@ class DecodeEngine:
         self._bt_device: Optional[Tensor] = None
         self._bt_stale = True
         self._peeked = 0                       # positions of the last peek
+        # the single-request drivers' committed length on the device, read
+        # by their forwards: filled from the host ``cache_len``
+        # (which drivers may also set) before each of them
+        self.cache_len_device = torch.zeros((), dtype=torch.int32,
+                                            device=self.device)
+        # the slotted prefill's dense scratch cache at (batch, max_len),
+        # shared by every width: made at its first use
+        self.scratch: Optional[Dict] = None
         self.prefill_log: List[Dict] = []
 
     def _require_dense(self, what: str) -> None:
@@ -215,22 +255,33 @@ class DecodeEngine:
     # ------------------------------------------------------------------
     def prefill(self, tokens: Tensor) -> Tensor:
         """tokens: (b, prompt_len).  Returns last-position logits and keeps
-        the last position's final-norm hidden state in ``last_hidden``."""
+        the last position's final-norm hidden state in ``last_hidden``
+        (both cloned out of the forward's static outputs)."""
         self._require_dense("prefill")
+        logits, hidden = self.graphs.run(
+            ("prefill_single", *tokens.shape, self.use_kernel),
+            self._prefill_forward, (tokens,))
+        logits, self.last_hidden = logits.clone(), hidden.clone()
+        self.cache_len = int(tokens.shape[1])
+        return logits
+
+    def _prefill_forward(self, tokens: Tensor) -> Tuple[Tensor, Tensor]:
+        """The single-request prefill over the engine's cache (K/V from
+        position 0, the new SSM states adopted): the last position's
+        logits and hidden state."""
         logits, new_cache, _, hidden = forward(
             self.params, self.cfg, {"tokens": tokens}, mode="prefill",
             cache=self.cache, use_kernel=self.use_kernel)
         self._adopt_states(new_cache)
-        self.cache_len = int(tokens.shape[1])
-        self.last_hidden = hidden[:, -1]
-        return logits[:, -1]
+        return logits[:, -1], hidden[:, -1]
 
     def decode_step(self, tokens: Tensor, advance: Optional[int] = None
                     ) -> Tensor:
         """One multi-position decode forward over N = tokens.shape[1]
         positions, committing ``advance`` of them (default all N).  A model
         with recurrent state commits all N or none: its state after a
-        part of the block is not kept."""
+        part of the block is not kept.  The logits are the forward's static
+        output, valid until the next forward of this width."""
         self._require_dense("decode_step")
         n = tokens.shape[1]
         adv = n if advance is None else int(advance)
@@ -239,10 +290,7 @@ class DecodeEngine:
                 f"{self.cfg.name}: committing {adv} of {n} positions needs "
                 "the recurrent state after each position, which is not "
                 "kept")
-        logits, new_cache, _, _ = forward(
-            self.params, self.cfg, {"tokens": tokens}, mode="decode",
-            cache=self.cache, cache_len=self.cache_len,
-            use_kernel=self.use_kernel)
+        logits, new_cache, _ = self._single_forward(tokens)
         if adv > 0:
             self._adopt_states(new_cache)
         self.cache_len += adv
@@ -253,13 +301,28 @@ class DecodeEngine:
         refinement forwards): K/V of the N positions land in the cache in
         place from ``cache_len`` on, where the mask hides them until
         ``commit`` advances over them or a later forward overwrites them;
-        SSM states come back new.  Returns (logits, new_cache, hidden)."""
+        SSM states come back new.  Returns (logits, new_cache, hidden), the
+        forward's static outputs, valid until the next forward of this
+        width."""
         self._require_dense("peek_step")
+        out = self._single_forward(tokens)
+        self._peeked = tokens.shape[1]
+        return out
+
+    def _single_forward(self, tokens: Tensor) -> Tuple[Tensor, Dict, Tensor]:
+        """The single-request decode forward at ``cache_len``: the (b, n)
+        key's forward, reading ``cache_len_device``."""
+        self.cache_len_device.fill_(self.cache_len)
+        return self.graphs.run(
+            ("decode_single", *tokens.shape, self.use_kernel),
+            lambda t: self._decode_at(t, self.cache_len_device), (tokens,))
+
+    def _decode_at(self, tokens: Tensor, cache_len
+                   ) -> Tuple[Tensor, Dict, Tensor]:
         logits, new_cache, _, hidden = forward(
             self.params, self.cfg, {"tokens": tokens}, mode="decode",
-            cache=self.cache, cache_len=self.cache_len,
+            cache=self.cache, cache_len=cache_len,
             use_kernel=self.use_kernel)
-        self._peeked = tokens.shape[1]
         return logits, new_cache, hidden
 
     def commit(self, new_cache: Dict, n_accepted: int) -> None:
@@ -305,21 +368,58 @@ class DecodeEngine:
             b *= 2
         return min(b, self.max_len)
 
-    def _prefill_scratch(self, toks: Dict[int, np.ndarray], width: int):
-        """Prefill the rows ``sorted(toks)`` (right-padded to ``width``)
-        into a fresh dense scratch cache.  Pad positions sit after each
-        prompt, so causality keeps them out of every prompt position (an
-        SSM model's groups have no pad positions)."""
-        rows = sorted(toks)
-        grid = np.zeros((len(rows), width), np.int64)
-        for i, s in enumerate(rows):
-            grid[i, :len(toks[s])] = toks[s]
-        scratch = init_cache(self.cfg, len(rows), width, self.dtype,
-                             self.device)
-        logits, scratch, _, hidden = forward(
-            self.params, self.cfg, {"tokens": self._tokens(grid)},
-            mode="prefill", cache=scratch, use_kernel=self.use_kernel)
-        return rows, logits, scratch, hidden
+    def _prefill_graph(self, toks: Dict[int, np.ndarray], width: int
+                       ) -> Dict[int, Tuple[Tensor, Tensor]]:
+        """The slotted prefill of ``toks`` over the (batch, width) grid
+        (the key's graph, or its forward eagerly): row s holds slot s's
+        prompt, right-padded, and the rows outside ``toks`` zeros.  The grid, its row flags and each
+        row's last prompt position go to the device as ONE (batch, width
+        + 2) array.  Returns {slot: (logits, hidden) of its last prompt
+        position}, cloned out of the forward's outputs; the group's K/V sit
+        in ``scratch`` at row = slot, and a dense engine has taken them
+        and the new states into its cache already (``_grid_forward``)."""
+        logits, hidden = self.graphs.run(
+            ("prefill", self.batch, width, self.use_kernel),
+            self._grid_forward, (self._grid_input(toks, width),))
+        return {s: (logits[s].clone(), hidden[s].clone()) for s in toks}
+
+    def _grid_input(self, toks: Dict[int, np.ndarray], width: int
+                    ) -> Tensor:
+        """``_prefill_graph``'s (batch, width + 2) input on the device
+        (the scratch cache made first, on its first use)."""
+        if self.scratch is None:
+            self.scratch = init_cache(self.cfg, self.batch, self.max_len,
+                                      self.dtype, self.device)
+        packed = np.zeros((self.batch, width + 2), np.int64)
+        for s, t in toks.items():
+            packed[s, :len(t)] = t
+            packed[s, width:] = (1, len(t) - 1)
+        return self._tokens(packed)
+
+    def _grid_forward(self, packed: Tensor) -> Tuple[Tensor, Tensor]:
+        """The forward of ``_prefill_graph`` over the static (batch,
+        width + 2) array: the prefill into ``scratch``, then, on
+        a dense engine, the flagged rows' K/V (first ``width`` positions)
+        and new states taken into the cache, the reference's
+        ``_row_mask`` selection.  Returns each row's (logits, hidden) at
+        its last prompt position."""
+        width = packed.shape[1] - 2
+        flags, last = packed[:, width] != 0, packed[:, width + 1]
+        logits, new, _, hidden = forward(
+            self.params, self.cfg, {"tokens": packed[:, :width]},
+            mode="prefill", cache=self.scratch, use_kernel=self.use_kernel)
+        if self.manager is None:
+            self._adopt_states(new, flags)
+            for (kind, _), seg, sseg in zip(make_segments(self.cfg),
+                                            self.cache["segments"],
+                                            new["segments"]):
+                for key, leaf in (segment_kv(kind, seg) or {}).items():
+                    old = leaf[:, :, :width]
+                    keep = flags.view((1, -1) + (1,) * (old.dim() - 2))
+                    old.copy_(torch.where(
+                        keep, segment_kv(kind, sseg)[key][:, :, :width], old))
+        rows = torch.arange(self.batch, device=self.device)
+        return logits[rows, last], hidden[rows, last]
 
     def prefill_slots(self, prompts: Dict[int, np.ndarray],
                       reserve: Optional[Dict[int, int]] = None
@@ -350,24 +450,14 @@ class DecodeEngine:
             groups = sorted(by_len.items())
         else:
             groups = [(self.prefill_bucket(max(lens.values())), toks)]
-        kinds = [kind for kind, _ in make_segments(self.cfg)]
         out: Dict[int, Tuple[Tensor, Tensor]] = {}
         for width, group in groups:
-            rows, logits, scratch, hidden = self._prefill_scratch(group,
-                                                                  width)
-            idx = torch.as_tensor(rows, device=self.device)
-            for kind, seg, sseg in zip(kinds, self.cache["segments"],
-                                       scratch["segments"]):
-                for key, leaf in (segment_states(kind, seg) or {}).items():
-                    leaf[:, idx] = segment_states(kind, sseg)[key]
-                for key, leaf in (segment_kv(kind, seg) or {}).items():
-                    leaf[:, idx, :width] = segment_kv(kind, sseg)[key]
-            for i, s in enumerate(rows):
+            out.update(self._prefill_graph(group, width))
+            for s in sorted(group):
                 self._set_slot_len(s, lens[s])
-                out[s] = (logits[i, lens[s] - 1], hidden[i, lens[s] - 1])
-            self.prefill_log.append({"slots": rows, "bucket": width,
+            self.prefill_log.append({"slots": sorted(group), "bucket": width,
                                      "computed_tokens": sum(
-                                         lens[s] for s in rows)})
+                                         lens[s] for s in group)})
         return out
 
     def _prefill_slots_paged(self, toks: Dict[int, np.ndarray],
@@ -401,22 +491,20 @@ class DecodeEngine:
         bs = mgr.block_size
         if full:
             width = self.prefill_bucket(max(lens[s] for s in full))
-            _, logits, scratch, hidden = self._prefill_scratch(
-                {s: toks[s] for s in full}, width)
+            out.update(self._prefill_graph({s: toks[s] for s in full}, width))
             rows, cols, flats = [], [], []
-            for i, s in enumerate(full):
+            for s in full:                     # scratch row = slot
                 pos = np.arange(lens[s])
                 page = mgr.tables[s, pos // bs].astype(np.int64)
-                rows.append(np.full(lens[s], i, np.int64))
+                rows.append(np.full(lens[s], s, np.int64))
                 cols.append(pos)
                 flats.append(page * bs + pos % bs)
-            _scatter_prefill(self.cache, scratch,
-                             *(torch.as_tensor(np.concatenate(a),
-                                               device=self.device)
-                               for a in (flats, rows, cols)))
-            for i, s in enumerate(full):
+            _scatter_prefill(self.cache, self.scratch, *(
+                torch.as_tensor(a, device=self.device) for a in pad_scatter(
+                    np.concatenate(flats), np.concatenate(rows),
+                    np.concatenate(cols), mgr.trash * bs)))
+            for s in full:
                 self._set_slot_len(s, lens[s])
-                out[s] = (logits[i, lens[s] - 1], hidden[i, lens[s] - 1])
             self.prefill_log.append({"slots": full, "bucket": width,
                                      "cached_tokens": 0,
                                      "computed_tokens": sum(
@@ -430,12 +518,12 @@ class DecodeEngine:
             for s in hits:
                 grid[s, :suf[s]] = toks[s][plans[s].cached_len:]
             # rows outside the hit group write past their own committed
-            # length (or into the trash page), which no mask reads back;
-            # a prefill, so eager (its widths are prompt buckets)
-            logits, _, hidden = self._decode_forward(self._tokens(grid))
+            # length (or into the trash page), which no mask reads back
+            logits, _, hidden = self._suffix_forward(self._tokens(grid))
             for s in hits:
                 self._set_slot_len(s, lens[s])
-                out[s] = (logits[s, suf[s] - 1], hidden[s, suf[s] - 1])
+                out[s] = (logits[s, suf[s] - 1].clone(),
+                          hidden[s, suf[s] - 1].clone())
             self.prefill_log.append({
                 "slots": hits, "bucket": width,
                 "cached_tokens": sum(plans[s].cached_len for s in hits),
@@ -443,6 +531,13 @@ class DecodeEngine:
         for s in sorted(toks):
             mgr.register_prompt(s, toks[s].tolist())
         return out
+
+    def _suffix_forward(self, tokens: Tensor) -> Tuple[Tensor, Dict, Tensor]:
+        """The prefix-hit suffix forward over every slot at its cached
+        length: the decode forward (its graph) at the suffix's bucket
+        width."""
+        self._device_tables()                  # refresh before a replay
+        return self.graphs.replay(tokens, self.use_kernel)
 
     def prefill_slot(self, slot: int, prompt: np.ndarray) -> Tensor:
         """Prefill ONE cache slot; returns its last-position logits."""
@@ -457,26 +552,39 @@ class DecodeEngine:
         paged, the block tables) go to ONE decode-attention launch per
         layer for the whole mixed-length batch.
 
-        With ``capture`` this replays the width's CUDA graph: the outputs
-        are the graph's and the next ``decode_slots`` overwrites them."""
+        With ``capture`` this replays the width's CUDA graph.  The
+        outputs are the width's static ones: the next ``decode_slots`` of
+        that width overwrites them."""
         if self.manager is not None:
             self._device_tables()              # refresh before a replay
-        if self.graphs is None:
-            return self._decode_forward(tokens)
         return self.graphs.replay(tokens, self.use_kernel)
 
     def warm_decode(self, widths) -> None:
         """Capture the decode graphs of ``widths`` ahead of serving or
-        timing, so no capture lands inside a timed step (a no-op without
-        capture).  A capture's warm-up forward writes K/V at or past every
-        slot's committed length, which no mask reads before a later
-        forward overwrites it."""
-        if self.graphs is None:
-            return
+        timing, so no capture lands inside a timed step (without capture
+        only the keys' static inputs are made).  A capture's warm-up
+        forward writes K/V at or past every slot's committed length, which
+        no mask reads before a later forward overwrites it."""
         if self.manager is not None:
             self._device_tables()
         for n in widths:
             self.graphs.warm((self.batch, int(n)), self.use_kernel)
+
+    def warm_prefill(self, widths) -> None:
+        """Capture the slotted prefill graphs of ``widths`` (prompt
+        buckets; an SSM model's exact prompt lengths) ahead of serving or
+        timing, and on a paged engine with a prefix cache the decode
+        graphs its prefix-hit suffix replays at those widths (without
+        capture only the keys' static inputs and the scratch are made).
+        The prefill graphs' warm-up forwards flag no row, so the cache
+        keeps what it holds; the decode graphs' write only past each
+        slot's committed length (``warm_decode``)."""
+        for w in widths:
+            self.graphs.capture(("prefill", self.batch, int(w),
+                                 self.use_kernel), self._grid_forward,
+                                (self._grid_input({}, int(w)),))
+        if self.manager is not None and self.paged.prefix_cache:
+            self.warm_decode(widths)
 
     def _decode_forward(self, tokens: Tensor
                         ) -> Tuple[Tensor, Dict, Tensor]:

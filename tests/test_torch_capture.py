@@ -1,12 +1,15 @@
-"""The captured decode step against the eager one on the card: for each
-ported model (reduced, bf16, through the kernels), ``decode_slots`` of a
-``capture=True`` engine must give logits and hidden states BITWISE equal
-to a ``capture=False`` engine holding the same weights and cache, at
-widths 1, 5, 16 and 17, dense and paged (the SSM and hybrid models
-dense, their committed states compared too), step after step with
-commits between;
-and the kernel launch counters must advance by exactly the eager
-forward's launches per replay, the capture itself counting none.
+"""The captured forwards against the eager ones on the card: for each
+ported model (reduced, bf16, through the kernels), a ``capture=True``
+engine must give logits and hidden states BITWISE equal to a
+``capture=False`` engine holding the same weights and cache:
+``decode_slots`` at widths 1, 5, 16 and 17, dense and paged (the SSM and
+hybrid models dense, their committed states compared too), step after
+step with commits between; ``prefill_slots`` over the (batch, width)
+grid, every slot at once and then two re-admitted (paged: one of them a
+prefix hit), every cache tensor and the slot lengths compared; and the
+single-request ``greedy_generate`` and ``peek_step`` / ``commit`` /
+``decode_step``.  The kernel launch counters must advance by exactly the
+eager forward's launches per replay, the capture itself counting none.
 
 Needs an NVIDIA GPU (marker ``gpu``; skipped elsewhere) and imports no
 JAX:
@@ -33,7 +36,7 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: CUDA graphs capture device work")
 
 
-def _engines(arch, paged):
+def _engines(arch, paged, prefill=True):
     from repro_torch.configs import get_config
     from repro_torch.models import init_model
     from repro_torch.models.transformer import has_ssm
@@ -50,7 +53,8 @@ def _engines(arch, paged):
     for capture in (False, True):
         eng = DecodeEngine(cfg, params, batch=SLOTS, max_len=MAX_LEN,
                            paged=kv, device="cuda", capture=capture)
-        eng.prefill_slots(prompts)
+        if prefill:
+            eng.prefill_slots(prompts)
         engines.append(eng)
     return cfg, engines
 
@@ -96,4 +100,102 @@ def test_captured_decode_equals_eager(arch, paged):
             assert torch.equal(outs[0][1], outs[1][1]), (n, step)
             for a, b in zip(_state(eager), _state(captured)):
                 assert torch.equal(a, b), (n, step)
-    assert len(captured.graphs.steps) == len(WIDTHS)
+    assert sum(k[0] == "decode" for k in captured.graphs.steps) == len(WIDTHS)
+
+
+def _calls(engines, fn):
+    """``fn(engine)`` on each engine: (outputs, every cache tensor and the
+    slot lengths, the launches the call made) per engine."""
+    from repro_torch.serving.capture import launch_counts
+    out = []
+    for eng in engines:
+        before = launch_counts()
+        got = fn(eng)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        out.append((got, _state(eng) + [eng.slot_lens.clone()],
+                    {k: after[k] - before[k] for k in after}))
+    return out
+
+
+def _same(results):
+    (a, sa, ca), (b, sb, cb) = results
+    assert ca == cb
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(sa, sb))
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_captured_prefill_equals_eager(arch, paged):
+    _need_card()
+    cfg, engines = _engines(arch, paged, prefill=False)
+    rng = np.random.default_rng(3)
+    first = {s: rng.integers(0, cfg.vocab_size, size=20 + 3 * (s % 2))
+             for s in range(SLOTS)}
+    # slot 1's prompt shares one 16-position page with slot 0's
+    second = {1: np.concatenate([first[0][:16],
+                                 rng.integers(0, cfg.vocab_size, 5)]),
+              3: rng.integers(0, cfg.vocab_size, 11)}
+
+    def admit(group):
+        def fn(eng):
+            got = eng.prefill_slots(group)
+            return [t for s in sorted(got) for t in got[s]]
+        return fn
+
+    def decode(n, adv):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                            size=(SLOTS, n)), device="cuda")
+
+        def fn(eng):
+            logits, cache, hidden = eng.decode_slots(toks)
+            out = [logits.clone(), hidden.clone()]
+            eng.commit_slots(cache, adv)
+            return out
+        return fn
+    _same(_calls(engines, admit(first)))
+    _same(_calls(engines, decode(1, np.ones(SLOTS, np.int64))))
+    for eng in engines:
+        for s in second:
+            eng.release_slot(s)
+    _same(_calls(engines, admit(second)))
+    if paged:
+        assert [e["cached_tokens"] for e in engines[1].prefill_log] == [0,
+                                                                        0, 16]
+    _same(_calls(engines, decode(3, np.array([3, 1, 0, 3]))))
+    _same(_calls(engines, decode(1, np.ones(SLOTS, np.int64))))
+    kinds = {k[0] for k in engines[1].graphs.steps}
+    assert kinds == {"prefill", "decode"}
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_captured_single_request_equals_eager(arch):
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serving import DecodeEngine
+    cfg = get_config(arch, reduced=True)
+    params = init_model(cfg, torch.Generator("cuda").manual_seed(0), "cuda")
+    engines = [DecodeEngine(cfg, params, batch=1, max_len=MAX_LEN,
+                            device="cuda", capture=c) for c in (True, False)]
+    rng = np.random.default_rng(4)
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 13)),
+                             device="cuda")
+    draft = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 5)),
+                            device="cuda")
+    streams = [eng.greedy_generate(prompt, 8) for eng in engines]
+    assert torch.equal(*streams)
+    adv = 5 if engines[0].recurrent else 3
+
+    def fn(eng):
+        out = [eng.prefill(prompt).clone(), eng.last_hidden.clone()]
+        logits, cache, hidden = eng.peek_step(draft)
+        out += [logits.clone(), hidden.clone()]
+        eng.commit(cache, adv)
+        out.append(eng.decode_step(draft[:, :1]).clone())
+        return out
+    _same(_calls(engines, fn))
+    assert engines[0].cache_len == engines[1].cache_len == 13 + adv + 1
+    assert {k[0] for k in engines[0].graphs.steps} == {"prefill_single",
+                                                       "decode_single"}
