@@ -263,12 +263,29 @@ Phases, in order; any failure exits non-zero:
                 synchronize), tokens/s, the model-FLOP share (6 N T over
                 the step over 989e12, remat's extra 2 N T beside it), the
                 gradient and optimizer parts of a step, steps with remat
-                False, and the memory peaks.  (c) the train CLI
-                (``repro_torch.launch.train``): tiny stablelm_3b, 50 steps at
-                lr 1e-2 (last loss < 0.85 x the first), then --steps 60 on
-                the same directory (resumes at 50), and the final
-                checkpoint restored bitwise equal to the state in memory.
-  7b. serve_ckpt — (b)'s trained full-size stablelm_3b params (the AdamW
+                False, and the memory peaks.  Then ``train_capture``: the
+                same 20 steps from the same seed and batches through
+                ``training.capture.compiled_train_step`` (the first call
+                eager, then its CUDA graph, then 19 replays): per-step
+                losses and gradient norms bitwise the eager run's (else
+                within the gap of an eager run again); the captured step
+                time, tokens/s and model-FLOP share beside the eager
+                ones, the first call's eager and capture seconds, memory
+                reserved with the graph pool, one replay under the
+                profiler; then the captured remat-False step.  Then
+                granite_moe_3b_a800m at full width and 8 of its 32 layers
+                (batch 4 x 256, n_micro 1, remat True): 4 eager steps and
+                4 captured, each from seed 0: losses, norms and final
+                params bitwise the eager run's (else within the gap of an
+                eager run again).  (c)
+                the train CLI (``repro_torch.launch.train``): tiny
+                stablelm_3b, 50 steps at lr 1e-2 (last loss < 0.85 x the
+                first), then --steps 60 on the same directory (resumes at
+                50), and the final checkpoint restored bitwise equal to the
+                state in memory; captured (the default) and again with
+                ``--no-capture``: bitwise the same losses and checkpoint.
+  7b. serve_ckpt — (b)'s captured run's trained full-size stablelm_3b
+                params (the AdamW
                 state freed) written by ``checkpoint.save`` (5.6 GB) and
                 served through ``repro_torch.launch.serve --ckpt-dir``:
                 8 requests of 48-token prompts x 32 tokens, 4 slots, paged
@@ -297,7 +314,8 @@ Phases, in order; any failure exits non-zero:
                 its 100M config (75.5e6 parameters), 40 steps with
                 checkpoints at 20 and 40, then --steps 60 on the same
                 directory: resumes at 40, runs 20, the last loss below the
-                first; the median synchronized step and tokens/s.
+                first; the median synchronized step (a graph replay) and
+                tokens/s, beside 8 ``--no-capture`` steps' median.
   8. dist     — sharded execution on a one-rank NCCL group
                 (``tcp://127.0.0.1:<free port>``).  (a) ``dist.ep_moe_ffn``
                 (dispatch, batched expert products, combine, two
@@ -3368,6 +3386,8 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_N_MICRO = 8, 256, 2
 # remat False, after the 20; the first of each is a warm-up
 TRAIN_EXTRA_STEPS = 4
 TRAIN = {}
+TRAIN_BATCHES = []            # train_full's batches, for train_capture
+TRAIN_CAPTURE = {}
 
 
 def _rel_norm(got, want) -> float:
@@ -3435,11 +3455,12 @@ def _timed(fn):
     return out, time.perf_counter() - t0
 
 
-def train_full(card) -> dict:
-    """(b) 20 steps of full-size stablelm_3b through ``train_step``, then
-    the step decomposed (its gradients, then ``adamw_update``: what
-    ``train_step`` runs for n_micro > 1) and with remat False.  Returns
-    the trained params (the AdamW state is freed on return)."""
+def train_full(card) -> None:
+    """(b) 20 steps of full-size stablelm_3b through the eager
+    ``train_step``, then the step decomposed (its gradients, then
+    ``adamw_update``: what ``train_step`` runs for n_micro > 1) and with
+    remat False.  Keeps its losses, gradient norms and batches for
+    ``train_capture``; its state is freed on return."""
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, make_pipeline
     from repro_torch.models import init_model
@@ -3461,15 +3482,19 @@ def train_full(card) -> dict:
                                           device="cuda")}
                for _ in range(TRAIN_STEPS + 2 * TRAIN_EXTRA_STEPS + 2)]
     data_s = time.perf_counter() - t0
+    TRAIN_BATCHES[:] = batches
     state_gb = torch.cuda.memory_allocated() / 1e9
     step = make_train_step(cfg, opt_cfg, n_micro=TRAIN_N_MICRO, remat=True)
-    losses, times = [], []
+    losses, norms, times = [], [], []
     for b in batches[:TRAIN_STEPS]:
         (params, opt, m), dt = _timed(lambda: step(params, opt, b))
         losses.append(m["loss"])
+        norms.append(m["grad_norm"])
         times.append(dt)
     losses = torch.stack(losses).tolist()
+    norms = torch.stack(norms).tolist()
     peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_s = statistics.median(times[2:])
     print(f"train {cfg.name}: {cfg.n_layers} layers, {n:.4g} parameters "
@@ -3484,7 +3509,8 @@ def train_full(card) -> dict:
           f"{6 * n * tokens / step_s / PEAK_BF16_FLOPS:.1%}, with remat's "
           f"recompute 8NT {8 * n * tokens / step_s / PEAK_BF16_FLOPS:.1%} "
           f"of {PEAK_BF16_FLOPS:.3g} FLOP/s; first step "
-          f"{1e3 * times[0]:.1f} ms; memory peak {peak:.2f} GB [{card}]")
+          f"{1e3 * times[0]:.1f} ms; memory peak {peak:.2f} GB, max "
+          f"reserved {reserved:.2f} GB [{card}]")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train: a loss is not finite: {losses}")
     if not np.mean(losses[-5:]) < losses[0]:
@@ -3508,7 +3534,7 @@ def train_full(card) -> dict:
     TRAIN.update(step_ms=1e3 * step_s, tokens_s=tokens / step_s,
                  mfu=6 * n * tokens / step_s / PEAK_BF16_FLOPS,
                  grad_ms=1e3 * grad_s, opt_ms=1e3 * opt_s, peak_gb=peak,
-                 losses=losses)
+                 max_reserved_gb=reserved, losses=losses, grad_norms=norms)
     train_profile("remat True", step, params, opt, batches[-2], card)
     gc.collect()
     torch.cuda.reset_peak_memory_stats()
@@ -3522,7 +3548,7 @@ def train_full(card) -> dict:
     except torch.cuda.OutOfMemoryError:
         print(f"train remat False: does not fit in the card's memory "
               f"[{card}]")
-        return params
+        return
     nr_s = statistics.median(nr_times[1:])
     nr_peak = torch.cuda.max_memory_allocated() / 1e9
     TRAIN.update(no_remat_ms=1e3 * nr_s, no_remat_peak_gb=nr_peak)
@@ -3532,7 +3558,6 @@ def train_full(card) -> dict:
           f"True costs {step_s / nr_s - 1:.1%} more time; memory peak "
           f"{nr_peak:.2f} GB against {peak:.2f} [{card}]")
     train_profile("remat False", nr_step, params, opt, batches[-1], card)
-    return params
 
 
 def train_profile(label, step, params, opt, batch, card, top=8) -> None:
@@ -3566,38 +3591,275 @@ def train_profile(label, step, params, opt, batch, card, top=8) -> None:
         print(f"  {ms:8.3f} ms  {100 * ms / total:5.1f}%  {name[:90]}")
 
 
+def _gap(got, want) -> float:
+    """The largest relative difference of two runs' per-step values."""
+    return max(abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got, want))
+
+
+def _state_gap(got, want) -> float:
+    """The worst leaf's normwise difference of two trees."""
+    return max(_rel_norm(a, b) for a, b in zip(_leaves(got), _leaves(want)))
+
+
+def _train_run(cfg, opt_cfg, batches, *, n_micro, remat, captured):
+    """Fresh params from seed 0 and ``len(batches)`` steps, eager or
+    through ``compiled_train_step``: (losses, grad norms, step seconds,
+    params, AdamW state, the compiled step or None)."""
+    from repro_torch.models import init_model
+    from repro_torch.training import init_opt_state, make_train_step
+    from repro_torch.training.capture import compiled_train_step
+    params = init_model(cfg, torch.Generator(device="cuda").manual_seed(0),
+                        "cuda")
+    opt = init_opt_state(params)
+    step = make_train_step(cfg, opt_cfg, n_micro=n_micro, remat=remat)
+    compiled = compiled_train_step(step, "cuda") if captured else None
+    run = compiled or step
+    losses, norms, times = [], [], []
+    for b in batches:
+        (params, opt, m), dt = _timed(lambda: run(params, opt, b))
+        losses.append(m["loss"])
+        norms.append(m["grad_norm"])
+        times.append(dt)
+    return (torch.stack(losses).tolist(), torch.stack(norms).tolist(), times,
+            params, opt, compiled)
+
+
+def _held(name, got, want, gap) -> None:
+    """Whether the captured run's per-step (loss, grad norm) lists ``got``
+    equal the eager ``want`` bitwise, or where two eager runs part (``gap``
+    {"loss", "grad_norm"}, None if not measured) lie within their gap."""
+    same = got == want
+    if not same and gap is not None and max(gap.values()) > 0:
+        same = (_gap(got[0], want[0]) <= gap["loss"]
+                and _gap(got[1], want[1]) <= gap["grad_norm"])
+    if not same:
+        raise AssertionError(
+            f"{name}: captured losses {got[0]} / grad norms {got[1]} against "
+            f"eager {want[0]} / {want[1]} (eager-vs-eager gap {gap})")
+
+
+def train_capture(card):
+    """(b2) ``train_full``'s 20 remat-True steps again, from the same seed
+    and batches, through ``training.capture.compiled_train_step``: the
+    first call eager then its capture, then 19 replays.  Per-step losses
+    and gradient norms bitwise ``train_full``'s (else an eager run again
+    gives the eager-vs-eager gap, which bounds them); the median replayed
+    step, tokens/s, model-FLOP share, the first call's eager and capture
+    seconds, memory reserved with the graph pool, one replay under the
+    profiler.  Then the captured remat-False step.  Returns the trained
+    params (the AdamW state and the graphs are freed on return)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_map
+    from repro_torch.training import AdamWConfig, make_train_step
+    from repro_torch.training.capture import compiled_train_step
+    cfg = get_config("stablelm_3b")
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=4, total_steps=TRAIN_STEPS)
+    batches = TRAIN_BATCHES
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, times, params, opt, step = _train_run(
+        cfg, opt_cfg, batches[:TRAIN_STEPS], n_micro=TRAIN_N_MICRO,
+        remat=True, captured=True)
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    held = torch.cuda.memory_reserved() / 1e9
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    first = step.summary()
+    n = sum(t.numel() for t in _leaves(params))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = statistics.median(times[2:])
+    bitwise = (losses, norms) == (TRAIN["losses"], TRAIN["grad_norms"])
+    eager_gap = None
+    TRAIN_CAPTURE.update(
+        step_ms=1e3 * step_s, tokens_s=tokens / step_s,
+        mfu=6 * n * tokens / step_s / PEAK_BF16_FLOPS,
+        first_ms=1e3 * times[0], eager_s=first["eager_s"],
+        capture_s=first["capture_s"], graphs=first["graphs"],
+        max_reserved_gb=reserved, reserved_gb=held, peak_gb=peak,
+        bitwise=bitwise)
+    print(f"train_capture {cfg.name}: {TRAIN_STEPS} captured steps (remat "
+          f"True, batch {TRAIN_BATCH} x {TRAIN_SEQ}, n_micro "
+          f"{TRAIN_N_MICRO}, train_full's seed and batches): losses and "
+          f"grad norms bitwise the eager run's: {bitwise} (worst relative "
+          f"difference loss {_gap(losses, TRAIN['losses']):.3g}, grad norm "
+          f"{_gap(norms, TRAIN['grad_norms']):.3g}); {first['graphs']} "
+          f"graph; first call {1e3 * times[0]:.1f} ms (eager step "
+          f"{first['eager_s']:.2f} s, capture {first['capture_s']:.2f} s) "
+          f"[{card}]")
+    print(f"train_capture step (median of steps 3-{TRAIN_STEPS}, host clock "
+          f"ending in a synchronize): captured {1e3 * step_s:.1f} ms, "
+          f"{tokens / step_s:.0f} tokens/s, model-FLOP share 6NT "
+          f"{TRAIN_CAPTURE['mfu']:.1%}; eager in this call "
+          f"{TRAIN['step_ms']:.1f} ms, {TRAIN['tokens_s']:.0f} tokens/s, "
+          f"{TRAIN['mfu']:.1%} ({TRAIN['step_ms'] / (1e3 * step_s):.2f}x); "
+          f"memory: max reserved {reserved:.2f} GB (eager "
+          f"{TRAIN['max_reserved_gb']:.2f}), reserved after the steps "
+          f"{held:.2f} GB (the state and the graph pool), max allocated "
+          f"{peak:.2f} GB (eager {TRAIN['peak_gb']:.2f}) [{card}]")
+    train_profile("captured remat True", step, params, opt, batches[-2],
+                  card)
+    del step
+    gc.collect()
+    torch.cuda.empty_cache()
+    nr = compiled_train_step(make_train_step(cfg, opt_cfg,
+                                             n_micro=TRAIN_N_MICRO,
+                                             remat=False), "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    nr_times = []
+    for b in batches[TRAIN_STEPS + TRAIN_EXTRA_STEPS:-2]:
+        (params, opt, m), dt = _timed(lambda: nr(params, opt, b))
+        nr_times.append(dt)
+    nr_s = statistics.median(nr_times[1:])
+    nr_reserved = torch.cuda.max_memory_reserved() / 1e9
+    nr_held = torch.cuda.memory_reserved() / 1e9
+    TRAIN_CAPTURE.update(no_remat_ms=1e3 * nr_s, no_remat_first_ms=1e3
+                         * nr_times[0], no_remat_max_reserved_gb=nr_reserved,
+                         no_remat_reserved_gb=nr_held)
+    print(f"train_capture step remat False (median of {len(nr_times) - 1} "
+          f"replays): captured {1e3 * nr_s:.1f} ms, {tokens / nr_s:.0f} "
+          f"tokens/s, model-FLOP share "
+          f"{6 * n * tokens / nr_s / PEAK_BF16_FLOPS:.1%}; eager in this "
+          f"call {TRAIN.get('no_remat_ms', float('nan')):.1f} ms; first call "
+          f"{1e3 * nr_times[0]:.1f} ms; max reserved {nr_reserved:.2f} GB, "
+          f"reserved after the steps {nr_held:.2f} GB [{card}]")
+    train_profile("captured remat False", nr, params, opt, batches[-1],
+                  card)
+    del nr, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not bitwise:
+        # the eager-vs-eager gap: train_full's steps once more, eagerly
+        params = tree_map(lambda t: t.cpu(), params)
+        again = _train_run(cfg, opt_cfg, batches[:TRAIN_STEPS],
+                           n_micro=TRAIN_N_MICRO, remat=True, captured=False)
+        eager_gap = {"loss": _gap(again[0], TRAIN["losses"]),
+                     "grad_norm": _gap(again[1], TRAIN["grad_norms"])}
+        del again
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = tree_map(lambda t: t.to("cuda"), params)
+        TRAIN_CAPTURE["eager_gap"] = eager_gap
+        print(f"train_capture: eager-vs-eager gap over the same "
+              f"{TRAIN_STEPS} steps: {eager_gap} [{card}]")
+    _held("train_capture", (losses, norms),
+          (TRAIN["losses"], TRAIN["grad_norms"]), eager_gap)
+    return params
+
+
+def train_capture_moe(card) -> None:
+    """granite_moe_3b_a800m at full width and ``PLAIN_TRAIN_LAYERS`` of its
+    32 layers (batch 4 x 256, n_micro 1, remat True, the grouped bf16 MoE
+    path): 4 eager steps and 4 captured steps, each from seed 0: per-step
+    losses and gradient norms, and the final params, bitwise the eager
+    run's; if they part, the same 4 steps eagerly again give the
+    eager-vs-eager gap, which bounds them.  Step times."""
+    from repro_torch.configs import get_config
+    from repro_torch.training import AdamWConfig
+    cfg = dataclasses.replace(get_config("granite_moe_3b_a800m"),
+                              n_layers=PLAIN_TRAIN_LAYERS)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    batches = [{"tokens": torch.randint(0, cfg.vocab_size, (4, 256),
+                                        generator=g, device="cuda")}
+               for _ in range(PLAIN_TRAIN_STEPS)]
+
+    def run(captured):
+        losses, norms, times, params, opt, step = _train_run(
+            cfg, AdamWConfig(lr=1e-4), batches, n_micro=1, remat=True,
+            captured=captured)
+        out = {"metrics": (losses, norms), "params": params,
+               "ms": 1e3 * statistics.median(times[1:]),
+               "first_ms": 1e3 * times[0],
+               "compiled": step.summary() if step else None}
+        del opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    eager, cap = run(False), run(True)
+    params_gap = _state_gap(cap["params"], eager["params"])
+    bitwise = cap["metrics"] == eager["metrics"] and params_gap == 0
+    gap = None
+    if not bitwise:
+        again = run(False)
+        gap = {"loss": _gap(again["metrics"][0], eager["metrics"][0]),
+               "grad_norm": _gap(again["metrics"][1], eager["metrics"][1]),
+               "params": _state_gap(again["params"], eager["params"])}
+        del again
+    TRAIN_CAPTURE["granite"] = {
+        "eager_ms": eager["ms"], "captured_ms": cap["ms"],
+        "first_ms": cap["first_ms"], "eager_gap": gap, "bitwise": bitwise,
+        **cap["compiled"]}
+    print(f"train_capture granite_moe_3b_a800m ({PLAIN_TRAIN_LAYERS} of 32 "
+          f"layers at full width, batch 4 x 256, n_micro 1, remat True, "
+          f"{PLAIN_TRAIN_STEPS} steps): captured against eager bitwise "
+          f"{bitwise} (final params {params_gap:.3g} normwise; "
+          f"eager-vs-eager gap {gap}); losses {cap['metrics'][0]}; step "
+          f"(median of steps 2-{PLAIN_TRAIN_STEPS}) eager {eager['ms']:.1f} "
+          f"ms, captured {cap['ms']:.1f} ms; first call "
+          f"{cap['first_ms']:.1f} ms (eager step "
+          f"{cap['compiled']['eager_s']:.2f} s, capture "
+          f"{cap['compiled']['capture_s']:.2f} s) [{card}]")
+    _held("train_capture granite", cap["metrics"], eager["metrics"],
+          None if gap is None else {k: gap[k] for k in ("loss",
+                                                        "grad_norm")})
+    if gap is not None and params_gap > gap["params"]:
+        raise AssertionError(f"train_capture granite: final params part by "
+                             f"{params_gap:.3g} normwise, eager-vs-eager "
+                             f"{gap['params']:.3g}")
+
+
 def train_cli(card) -> None:
     """(c) The train CLI in-process: 50 steps, a resume to 60, the final
-    checkpoint against the state in memory."""
+    checkpoint against the state in memory; captured (the default), then
+    the same argv with ``--no-capture``: bitwise the same losses and final
+    checkpoint."""
     import shutil
     from repro_torch.checkpoint import restore
     from repro_torch.launch.train import build_parser, train
-    ckpt = OUT / "train_ckpt"
-    shutil.rmtree(ckpt, ignore_errors=True)
-    argv = ["--arch", "stablelm_3b", "--tiny", "--lr", "1e-2", "--ckpt-dir",
-            str(ckpt), "--ckpt-every", "20"]
-    print("cli train: python -m repro_torch.launch.train "
-          + " ".join(argv + ["--steps", "50"]), flush=True)
-    first = train(build_parser().parse_args(argv + ["--steps", "50"]))
-    losses = first["losses"]
-    print(f"cli train: losses {losses[0]:.4f} -> {losses[-1]:.4f} "
-          f"({losses[-1] / losses[0]:.3f} of the first; limit 0.85) "
-          f"[{card}]")
-    if not (len(losses) == 50 and losses[-1] < 0.85 * losses[0]):
-        raise AssertionError(f"cli train: the loss did not fall: {losses}")
-    second = train(build_parser().parse_args(argv + ["--steps", "60"]))
-    if second["start"] != 50 or len(second["losses"]) != 10:
-        raise AssertionError(f"cli train: resumed at {second['start']} "
-                             f"with {len(second['losses'])} steps")
-    restored, meta = restore(str(ckpt), second["state"])
-    same = all(torch.equal(a, b) for a, b in
-               zip(_leaves(restored), _leaves(second["state"])))
-    print(f"cli train: resumed at step {second['start']}, ran "
-          f"{len(second['losses'])} steps to {meta['step']}; the final "
-          f"checkpoint restores bitwise equal to the state in memory: {same} "
-          f"[{card}]")
-    if not same or meta["step"] != 60:
-        raise AssertionError("cli train: the final checkpoint differs")
+    runs = {}
+    for mode in ("captured", "no-capture"):
+        ckpt = OUT / ("train_ckpt" if mode == "captured"
+                      else "train_ckpt_eager")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv = ["--arch", "stablelm_3b", "--tiny", "--lr", "1e-2",
+                "--ckpt-dir", str(ckpt), "--ckpt-every", "20"] + (
+            ["--no-capture"] if mode == "no-capture" else [])
+        print("cli train: python -m repro_torch.launch.train "
+              + " ".join(argv + ["--steps", "50"]), flush=True)
+        t0 = time.perf_counter()
+        first = train(build_parser().parse_args(argv + ["--steps", "50"]))
+        losses = first["losses"]
+        print(f"cli train {mode}: losses {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f} ({losses[-1] / losses[0]:.3f} of the "
+              f"first; limit 0.85) [{card}]")
+        if not (len(losses) == 50 and losses[-1] < 0.85 * losses[0]):
+            raise AssertionError(f"cli train: the loss did not fall: "
+                                 f"{losses}")
+        second = train(build_parser().parse_args(argv + ["--steps", "60"]))
+        dt = time.perf_counter() - t0
+        if second["start"] != 50 or len(second["losses"]) != 10:
+            raise AssertionError(f"cli train: resumed at {second['start']} "
+                                 f"with {len(second['losses'])} steps")
+        restored, meta = restore(str(ckpt), second["state"], device="cpu")
+        same = all(torch.equal(a, b.cpu()) for a, b in
+                   zip(_leaves(restored), _leaves(second["state"])))
+        print(f"cli train {mode}: resumed at step {second['start']}, ran "
+              f"{len(second['losses'])} steps to {meta['step']}; the final "
+              f"checkpoint restores bitwise equal to the state in memory: "
+              f"{same}; both runs {dt:.1f} s [{card}]")
+        if not same or meta["step"] != 60:
+            raise AssertionError("cli train: the final checkpoint differs")
+        runs[mode] = (losses + second["losses"], restored, dt)
+        del first, second
+    (l0, c0, t0), (l1, c1, t1) = runs["captured"], runs["no-capture"]
+    same = l0 == l1 and all(a.dtype == b.dtype and torch.equal(a, b)
+                            for a, b in zip(_leaves(c0), _leaves(c1)))
+    TRAIN_CAPTURE["cli"] = {"bitwise": same, "captured_s": t0,
+                            "no_capture_s": t1}
+    print(f"cli train: captured against --no-capture, 60 steps across the "
+          f"resume: losses and final checkpoint bitwise equal: {same}; "
+          f"{t0:.1f} s against {t1:.1f} s [{card}]")
+    shutil.rmtree(OUT / "train_ckpt_eager", ignore_errors=True)
+    if not same:
+        raise AssertionError(f"cli train: captured losses {l0} against "
+                             f"--no-capture {l1}, or the checkpoints differ")
 
 
 # ---------------------------------------------------------------------------
@@ -3718,6 +3980,7 @@ def serve_ckpt(params, fns, card) -> dict:
 EXAMPLES = {}
 TRAIN_LM_STEPS = (40, 60)
 TRAIN_LM_EVERY = 20
+TRAIN_LM_EAGER_STEPS = 8      # --no-capture steps timed beside the captured
 
 
 def example_nfp_survey(card) -> None:
@@ -3867,7 +4130,10 @@ def example_serve_parallel_decode(ops, card) -> None:
 
 def example_train_lm(card) -> None:
     """The 100M config for 40 steps (checkpoints at 20 and 40), then to 60
-    from the same directory: resumes at 40, runs 20, the loss falls."""
+    from the same directory: resumes at 40, runs 20, the loss falls; its
+    step replays a CUDA graph.  Then 8 ``--no-capture`` steps of the same
+    model in another directory: their median step beside the captured
+    one, their losses against the captured run's first 8."""
     import shutil
     from repro_torch.examples import train_lm
     d = OUT / "train_lm"
@@ -3883,6 +4149,14 @@ def example_train_lm(card) -> None:
     dt = time.perf_counter() - t0
     first, second = runs
     shutil.rmtree(d, ignore_errors=True)
+    argv = ["--steps", str(TRAIN_LM_EAGER_STEPS), "--ckpt-every",
+            str(TRAIN_LM_EAGER_STEPS), "--ckpt-dir", str(d), "--no-capture"]
+    print("example train_lm: python -m repro_torch.examples.train_lm "
+          + " ".join(argv), flush=True)
+    eager = train_lm.main(argv)
+    shutil.rmtree(d, ignore_errors=True)
+    eager_ms = 1e3 * statistics.median(eager["step_s"][2:])
+    same = eager["losses"] == first["losses"][:TRAIN_LM_EAGER_STEPS]
     if (second["start"] != TRAIN_LM_STEPS[0]
             or len(second["losses"]) != TRAIN_LM_STEPS[1] - TRAIN_LM_STEPS[0]
             or not second["losses"][-1] < first["losses"][0]):
@@ -3897,14 +4171,25 @@ def example_train_lm(card) -> None:
     EXAMPLES["train_lm"] = {"s": dt, "params": first["n_params"],
                             "step_ms": 1e3 * step_s,
                             "tokens_s": tokens / step_s,
+                            "eager_step_ms": eager_ms,
+                            "first_ms": 1e3 * first["step_s"][0],
+                            **first["compiled"],
+                            "eager_losses_bitwise": same,
                             "loss_first": first["losses"][0],
                             "loss_last": second["losses"][-1]}
     print(f"example train_lm {first['cfg'].name}: {first['n_params']:.4g} "
           f"parameters, batch 8 x 256, n_micro 2; loss "
           f"{first['losses'][0]:.4f} -> {second['losses'][-1]:.4f}; resumed "
           f"at step {second['start']} and ran {len(second['losses'])}; "
-          f"median step (synchronized) {1e3 * step_s:.1f} ms, "
-          f"{tokens / step_s:.0f} tokens/s; both runs {dt:.1f} s [{card}]")
+          f"median step (synchronized) captured {1e3 * step_s:.1f} ms, "
+          f"{tokens / step_s:.0f} tokens/s; --no-capture in this call "
+          f"{eager_ms:.1f} ms (median of steps 3-{TRAIN_LM_EAGER_STEPS}), "
+          f"{tokens / eager_ms * 1e3:.0f} tokens/s, its losses bitwise the "
+          f"captured run's first {TRAIN_LM_EAGER_STEPS}: {same}; first "
+          f"captured step {1e3 * first['step_s'][0]:.1f} ms (eager "
+          f"{first['compiled']['eager_s']:.2f} s, capture "
+          f"{first['compiled']['capture_s']:.2f} s); both captured runs "
+          f"{dt:.1f} s [{card}]")
 
 
 def examples_phase(ops, moe_ops, card) -> None:
@@ -5245,7 +5530,14 @@ def main() -> int:
     train_check(card)
     gc.collect()
     torch.cuda.empty_cache()
-    trained = train_full(card)
+    train_full(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_capture(card)
+    TRAIN_BATCHES.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_capture_moe(card)
     gc.collect()
     torch.cuda.empty_cache()
     train_cli(card)
@@ -5396,6 +5688,10 @@ def main() -> int:
         "staircase_ms": {n: ms for n, (ms, _) in
                          scan_times["staircase"].items()},
         "launch_configurations": ANALYSIS["mamba_scan"]})
+    print("train summary: " + json.dumps(
+        {"eager": {k: v for k, v in TRAIN.items()
+                   if k not in ("losses", "grad_norms")},
+         "captured": TRAIN_CAPTURE}))
     print("examples summary: " + json.dumps(EXAMPLES))
     print("serve_ckpt summary: " + json.dumps(SERVE_CKPT))
     print("dist summary: " + json.dumps(DIST))

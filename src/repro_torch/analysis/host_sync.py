@@ -2,9 +2,9 @@
 counterpart of the reference's ``analysis/host_sync.py``, in torch terms).
 
 Walks every project function reachable from the roots (the serving
-loop's step and the engine's decode, the train step and the AdamW
-update by default) and flags expressions that make the host WAIT on the
-device:
+loop's step and the engine's decode, the train step, its captured
+replay and the AdamW update by default) and flags expressions that make
+the host WAIT on the device:
 
   HS001  int() / float() / bool() of a tensor, or a tensor used as a
          truth value (an ``if`` / ``while`` / ``assert`` test, a
@@ -47,6 +47,7 @@ DEFAULT_ROOTS = (
     "repro_torch.serving.engine.DecodeEngine.decode_slots",
     "repro_torch.training.train_step.train_step",
     "repro_torch.training.optimizer.adamw_update",
+    "repro_torch.training.capture.TrainGraphs.replay",
     "repro_torch.dist.sharded_train.local_train_step",
     "repro_torch.dist.tensor_parallel.attention",
     "repro_torch.dist.tensor_parallel.embed",

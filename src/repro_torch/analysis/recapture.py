@@ -10,8 +10,8 @@ milliseconds, plus graph-pool memory that is never given back).
   RC001  ``torch.cuda.CUDAGraph()``, ``torch.cuda.graph(...)``,
          ``torch.cuda.make_graphed_callables(...)`` or
          ``torch.compile(...)`` constructed in a function body outside
-         the capture path (``serving/capture.py``): a graph or compiled
-         wrapper per call
+         the capture paths (``serving/capture.py``,
+         ``training/capture.py``): a graph or compiled wrapper per call
   RC002  a width or shape fed to ``DecodeGraphs.warm`` /
          ``DecodeEngine.warm_decode`` is derived from a runtime shape
   RC003  a token tensor with shape-derived dimensions fed to
@@ -41,7 +41,8 @@ from repro_torch.analysis.findings import (Finding, pragma_allows,
 CHECKER = "recapture-hazard"
 
 #: modules whose functions may construct graphs (the capture path)
-CAPTURE_MODULES = ("repro_torch.serving.capture",)
+CAPTURE_MODULES = ("repro_torch.serving.capture",
+                   "repro_torch.training.capture")
 _GRAPH_CTORS = {"torch.cuda.CUDAGraph", "torch.cuda.graph",
                 "torch.cuda.graphs.CUDAGraph", "torch.cuda.graphs.graph",
                 "torch.cuda.make_graphed_callables", "torch.compile"}

@@ -11,7 +11,11 @@ trains on ``--device`` (``cuda`` unless given ``cpu``); weights come from
 A checkpoint is labelled with the optimizer steps it holds, and a run on
 a directory that holds one resumes there with the stream rebuilt at that
 step, so a resumed run trains on the batches an uninterrupted run would.
-The step time printed ends in a synchronize on the card.
+The step time printed ends in a synchronize on the card.  On the card
+the step is compiled per batch shape, as the reference jit-compiles it:
+the first step runs eagerly and captures a CUDA graph, every later one
+replays it (``training.capture``; ``--no-capture`` runs it eagerly), and
+a checkpoint is restored on the CPU and copied into the live state.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.data import DataConfig, make_pipeline
 from repro_torch.dist.elastic import StepWatchdog
 from repro_torch.models import init_model
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.training.capture import compiled_train_step
 
 
 def model_100m() -> ArchConfig:
@@ -53,13 +58,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--tiny", action="store_true")
     ap.add_argument("--ckpt-dir", default="build/train_lm")
     ap.add_argument("--ckpt-every", type=int, default=100)
+    ap.add_argument("--no-capture", action="store_true",
+                    help="run the step eagerly on the card (no CUDA graph)")
     return ap
 
 
 def main(argv=None) -> Dict:
-    """Returns {"cfg", "n_params", "start": the step resumed at, "losses"
-    and "step_s" of each step run, "tokens_s" (median step), "state":
-    {"params", "opt"} as it ends}."""
+    """Returns {"cfg", "n_params", "start": the step resumed at,
+    "compiled": the compiled step's graphs and first-call seconds,
+    "losses" and "step_s" of each step run, "tokens_s" (median step),
+    "state": {"params", "opt"} as it ends}."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     cfg = get_config("starcoder2_3b", reduced=True) if args.tiny \
@@ -72,12 +80,16 @@ def main(argv=None) -> Dict:
 
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=args.steps)
     state = {"params": params, "opt": init_opt_state(params)}
-    step_fn = make_train_step(cfg, opt_cfg, n_micro=2)
+    step_fn = compiled_train_step(
+        make_train_step(cfg, opt_cfg, n_micro=2), device,
+        capture=device.type == "cuda" and not args.no_capture)
     ckpt = AsyncCheckpointer(args.ckpt_dir, keep=2)
     start = 0
     if latest_step(args.ckpt_dir) is not None:    # restart-after-failure
-        restored, meta = restore(args.ckpt_dir, state, device=device)
-        state.update(restored)
+        # into the live leaves, which the captured step holds
+        restored, meta = restore(args.ckpt_dir, state, device="cpu")
+        for live, new in zip(leaves(state), leaves(restored)):
+            live.copy_(new)
         start = int(meta.get("step", 0))
         print(f"resumed from checkpoint at step {start}")
     data = make_pipeline(DataConfig(vocab_size=cfg.vocab_size,
@@ -113,6 +125,7 @@ def main(argv=None) -> Dict:
     tokens_s = (args.batch * args.seq / statistics.median(step_s)
                 if step_s else None)
     return {"cfg": cfg, "n_params": n_params, "start": start,
+            "compiled": step_fn.summary(),
             "losses": torch.stack(losses).tolist() if losses else [],
             "step_s": step_s, "tokens_s": tokens_s, "state": state}
 

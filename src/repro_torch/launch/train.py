@@ -7,6 +7,11 @@ On the card (the default device):
 On the CPU, at the reduced size:
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --tiny \
       --steps 50 --ckpt-dir /tmp/ckpt
+On one card the step is compiled per batch shape, as the reference
+jit-compiles it: its first call runs eagerly and captures a CUDA graph,
+every later call replays it (``training.capture``); ``--no-capture``
+runs it eagerly (over the same static batch buffers), as ``--device cpu``
+does.
 Sharded, one process per rank (no ``torchrun`` needed):
   RANK=r WORLD_SIZE=n PYTHONPATH=src python -m repro_torch.launch.train \
       --coordinator host:port --sharding-policy fsdp ...
@@ -24,7 +29,9 @@ batch on its model-axis shards, tensor-parallel where
 boundaries and whole where it does not; the gradients are averaged over
 the ranks that split the batch).  Every
 rank draws the same global batch from the stream and takes its rows, so
-a run gives the same batches at every world size.
+a run gives the same batches at every world size.  The sharded step is
+not captured: its collectives run over gloo in every run one card can
+give, and a gloo collective cannot be captured.
 
 Weights are random, drawn from seed 0; batches come from the synthetic
 stream (seed 0) or ``--data-path``'s binary shards.  Every ``--ckpt-every``
@@ -38,7 +45,9 @@ rollback), so it skips none either: a resumed run trains on the batches
 an uninterrupted run would.  A failure while a batch is fetched is
 retried in place; once the update has begun (it writes the state in
 place, then the loss is read and the checkpoint snapshotted) a failure
-rolls back to the last checkpoint instead.
+rolls back to the last checkpoint instead.  A checkpoint is restored on
+the CPU and copied into the live state (the captured step holds its
+tensors): the card never holds two copies of the state.
 """
 from __future__ import annotations
 
@@ -58,8 +67,10 @@ from repro_torch.dist.elastic import (StepWatchdog, UpdateInterrupted,
 from repro_torch.dist.sharded_train import (gather, make_sharded_train_step,
                                             state_placements)
 from repro_torch.dist.sharding import shard_tree
+from repro_torch.core.tree import leaves
 from repro_torch.models import init_model
 from repro_torch.training import AdamWConfig, init_opt_state, make_train_step
+from repro_torch.training.capture import compiled_train_step
 
 SEED = 0
 
@@ -83,6 +94,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="host:port (or an init URL) of the process group")
     ap.add_argument("--sharding-policy", default="auto",
                     choices=["auto", "fsdp", "tp_only", "dp_only"])
+    ap.add_argument("--no-capture", action="store_true",
+                    help="run the unsharded step eagerly on the card "
+                         "(no CUDA graph)")
     return ap
 
 
@@ -141,7 +155,9 @@ def train(args) -> dict:
             args.sharding_policy, n_micro=args.n_micro,
             params=state["params"])
     else:
-        step_fn = make_train_step(cfg, opt_cfg, n_micro=args.n_micro)
+        step_fn = compiled_train_step(
+            make_train_step(cfg, opt_cfg, n_micro=args.n_micro), device,
+            capture=device.type == "cuda" and not args.no_capture)
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.global_batch,
                           path=args.data_path)
@@ -155,10 +171,15 @@ def train(args) -> dict:
             ckpt.save(step, full, {"step": step})
 
     def load() -> int:
-        restored, meta = restore(
-            args.ckpt_dir, state, device=device,
-            shardings=placements, mesh=mesh)
-        state.update(restored)
+        if sharded:
+            restored, meta = restore(args.ckpt_dir, state, device=device,
+                                     shardings=placements, mesh=mesh)
+            state.update(restored)
+        else:
+            # into the live leaves, which the captured step holds
+            restored, meta = restore(args.ckpt_dir, state, device="cpu")
+            for live, new in zip(leaves(state), leaves(restored)):
+                live.copy_(new)
         return int(meta.get("step", 0))
 
     start = 0

@@ -147,7 +147,10 @@ def _call(fn, remat_layer: bool, *args, plans=None):
     if plans is not None:
         fn = lg.gathered(fn, plans)
     if remat_layer:
-        return checkpoint(fn, *args, use_reentrant=False)
+        # the forward draws no random numbers: the recompute needs no
+        # saved RNG state, and a captured train step reads none
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     if plans is None:
         return fn(*args)
     with lg.saving():
