@@ -1,0 +1,1 @@
+"""One driver per kind of cell; a traffic file names its driver."""
