@@ -1,0 +1,5 @@
+"""``admit_host_ms`` in ``stablelm_3b.long_answer_c16``, whose
+end-to-end metrics have bounds of their own."""
+from bench.harness import reader
+
+read = reader("admit_host_ms")

@@ -62,6 +62,7 @@ HOST_SAFE_CALLS = {
     "torch.get_default_dtype", "torch.set_default_dtype", "torch.Size",
     "torch.manual_seed", "torch.compile", "torch.numel",
     "torch.is_floating_point", "torch.use_deterministic_algorithms",
+    "torch.autograd._profiler_enabled",
 }
 HOST_SAFE_PREFIXES = ("torch.cuda.", "torch.backends.", "torch.profiler.",
                       "torch.distributed.", "torch.utils.", "torch.testing.",

@@ -21,6 +21,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from repro_torch.serving import spans
 from repro_torch.serving.engine import DecodeEngine, greedy_tokens
 
 __all__ = ["DecodeStats", "ParallelDecodeAlgorithm", "SlotAdapter"]
@@ -211,6 +212,7 @@ class SlotAdapter:
         # winners computed on the device; the one per-step device->host
         # transfer is this (batch, width) int32 block
         preds = np.asarray(greedy_tokens(logits).cpu())  # analysis: allow-host-sync
+        loop.read_back(spans.COMMIT)
         advances = np.zeros((eng.batch,), np.int64)
         for s in slots:
             req = loop.active[s]

@@ -40,6 +40,12 @@ launches of each wrapper one forward makes, sets every counter back to
 its value before the capture (its warm-up forward and the capture itself
 count nothing), and every replay adds the recorded counts.
 
+Every replay is timed on the device by one pair of CUDA events, made
+once per engine: one recorded before its input copy, one after its
+launch (``device_seconds`` reads the last replay).  Every ``run`` marks
+the launch boundary on the engine's phase clock (``serving.spans``)
+between its input copies and the launch.
+
 A capture or replay that fails raises; nothing falls back to the eager
 forward.
 """
@@ -48,13 +54,14 @@ from __future__ import annotations
 import gc
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.decode_attention import ops as attn_ops
 from repro_torch.kernels.mamba_scan import ops as scan_ops
 from repro_torch.kernels.moe_ffn import ops as moe_ops
+from repro_torch.serving.spans import LAUNCH, Phases
 
 Tensor = torch.Tensor
 
@@ -92,14 +99,20 @@ class DecodeGraphs:
     forward to ``run`` / ``capture``."""
 
     def __init__(self, device: torch.device,
-                 forward: Callable[[Tensor], Tuple]):
+                 forward: Callable[[Tensor], Tuple], phases: Phases):
         if device.type != "cuda":
             raise ValueError(f"a CUDA graph captures device work; the "
                              f"engine is on {device}")
         self.device = device
         self.forward = forward
+        self.phases = phases
         self.pool = None
         self.steps: Dict[Tuple, CapturedStep] = {}
+        # the last replay's device time: recorded before its input copy
+        # and after its launch, on the replaying stream
+        self._events = (torch.cuda.Event(enable_timing=True),
+                        torch.cuda.Event(enable_timing=True))
+        self._timed = False
 
     def warm(self, shape, use_kernel: bool) -> CapturedStep:
         """The decode step of ``shape`` (batch, n), captured if new."""
@@ -130,14 +143,28 @@ class DecodeGraphs:
         replay it (capturing it first, with ``forward``, if new); returns
         the graph's static outputs."""
         step = self.capture(key, forward, inputs)
+        self._events[0].record()
         for buf, x in zip(step.inputs, inputs):
             buf.copy_(x)
+        self.phases.mark(LAUNCH)
         step.graph.replay()
+        self._events[1].record()
+        self._timed = True
         counts = launch_counts()
         for name, n in step.launches.items():
             counts[name] += n
         _set_counts(counts)
         return step.outputs
+
+    def device_seconds(self) -> Optional[float]:
+        """Device seconds of the last replay, from its input copy
+        to its last node (the launch's wait and any bubble inside the
+        graph included); None before the first.  Read it once the replay's
+        results are on the host: the events have then completed, and the
+        read waits for nothing (an event not yet reached raises)."""
+        if not self._timed:
+            return None
+        return self._events[0].elapsed_time(self._events[1]) / 1e3
 
     def summary(self) -> Dict[str, Tuple[int, float]]:
         """Graphs and capture seconds per kind of key (its first field)."""
@@ -206,9 +233,10 @@ class EagerGraphs(DecodeGraphs):
     """
 
     def __init__(self, device: torch.device,
-                 forward: Callable[[Tensor], Tuple]):
+                 forward: Callable[[Tensor], Tuple], phases: Phases):
         self.device = device
         self.forward = forward
+        self.phases = phases
         self.pool = None
         self.steps: Dict[Tuple, CapturedStep] = {}
 
@@ -225,9 +253,14 @@ class EagerGraphs(DecodeGraphs):
         step = self.capture(key, forward, inputs)
         for buf, x in zip(step.inputs, inputs):
             buf.copy_(x)
+        self.phases.mark(LAUNCH)
         out = forward(*step.inputs)
         if step.outputs is None:
             step.outputs = out
         else:
             _copy_into(step.outputs, out)
         return step.outputs
+
+    def device_seconds(self) -> Optional[float]:
+        """None: an eager forward is not one device interval to time."""
+        return None

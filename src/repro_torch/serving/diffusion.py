@@ -29,6 +29,7 @@ import torch
 
 from repro_torch.serving.algorithm import (ParallelDecodeAlgorithm,
                                            SlotAdapter)
+from repro_torch.serving import spans
 from repro_torch.serving.engine import DecodeEngine
 
 Tensor = torch.Tensor
@@ -181,6 +182,7 @@ class DiffusionSlotAdapter(SlotAdapter):
                 break
             logits, _, _ = loop.shared_forward(block_tokens(), budget)
             conf, preds = pull_confidence(logits)
+            loop.read_back(spans.PLAN)
             for s in slots:
                 if not resolved[s].all():
                     refine_block(blocks[s], resolved[s], conf[s], preds[s],
@@ -188,6 +190,7 @@ class DiffusionSlotAdapter(SlotAdapter):
         # the commit forward over the resolved blocks: the only K/V left
         # at the committed positions
         _, new_cache, _ = loop.shared_forward(block_tokens(), budget)
+        loop.engine.phases.mark(spans.COMMIT)   # nothing to read back
         advances = np.zeros((eng.batch,), np.int64)
         for s in slots:
             req = loop.active[s]

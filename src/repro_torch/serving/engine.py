@@ -46,6 +46,11 @@ the scratch and the cache from static buffers, so every update to them
 is an in-place copy; its outputs live until the next forward of the
 same key, so the engine clones what a caller keeps (a prefill's rows,
 ``last_hidden``).
+
+``phases`` (``serving.spans``) is the clock of the serving loop's calls
+on the engine: ``prefill_slots`` marks an admission's prefill, scatter
+and bookkeeping boundaries, and the wait on the device in the scatter's
+index upload; the graphs mark the launch of each forward.
 """
 from __future__ import annotations
 
@@ -65,6 +70,8 @@ from repro_torch.models.transformer import (forward, has_ssm, init_cache,
                                             segment_kv, segment_states)
 from repro_torch.serving.capture import DecodeGraphs, EagerGraphs
 from repro_torch.serving.paged import BlockManager, PagedKVConfig
+from repro_torch.serving.spans import (BEGIN, PREFILL, SCATTER, WAIT,
+                                       Phases)
 
 Tensor = torch.Tensor
 
@@ -153,8 +160,12 @@ class DecodeEngine:
             self.use_kernel = self.device.type == "cuda"
         if self.capture is None:
             self.capture = self.device.type == "cuda"
+        # the host phases of the serving loop's calls on this engine
+        # (``serving.spans``); the engine's own code marks the boundaries
+        # that lie inside it
+        self.phases = Phases()
         self.graphs = (DecodeGraphs if self.capture else EagerGraphs)(
-            self.device, self._decode_forward)
+            self.device, self._decode_forward, self.phases)
         table = self.params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine "
@@ -452,7 +463,9 @@ class DecodeEngine:
             groups = [(self.prefill_bucket(max(lens.values())), toks)]
         out: Dict[int, Tuple[Tensor, Tensor]] = {}
         for width, group in groups:
+            self.phases.mark(PREFILL)
             out.update(self._prefill_graph(group, width))
+            self.phases.mark(BEGIN)
             for s in sorted(group):
                 self._set_slot_len(s, lens[s])
             self.prefill_log.append({"slots": sorted(group), "bucket": width,
@@ -490,8 +503,10 @@ class DecodeEngine:
         out: Dict[int, Tuple[Tensor, Tensor]] = {}
         bs = mgr.block_size
         if full:
+            self.phases.mark(PREFILL)
             width = self.prefill_bucket(max(lens[s] for s in full))
             out.update(self._prefill_graph({s: toks[s] for s in full}, width))
+            self.phases.mark(SCATTER)
             rows, cols, flats = [], [], []
             for s in full:                     # scratch row = slot
                 pos = np.arange(lens[s])
@@ -499,10 +514,14 @@ class DecodeEngine:
                 rows.append(np.full(lens[s], s, np.int64))
                 cols.append(pos)
                 flats.append(page * bs + pos % bs)
-            _scatter_prefill(self.cache, self.scratch, *(
-                torch.as_tensor(a, device=self.device) for a in pad_scatter(
-                    np.concatenate(flats), np.concatenate(rows),
-                    np.concatenate(cols), mgr.trash * bs)))
+            index = pad_scatter(np.concatenate(flats), np.concatenate(rows),
+                                np.concatenate(cols), mgr.trash * bs)
+            # the upload from pageable memory waits for the prefill
+            self.phases.mark(WAIT)
+            index = [torch.as_tensor(a, device=self.device) for a in index]
+            self.phases.mark(SCATTER)
+            _scatter_prefill(self.cache, self.scratch, *index)
+            self.phases.mark(BEGIN)
             for s in full:
                 self._set_slot_len(s, lens[s])
             self.prefill_log.append({"slots": full, "bucket": width,
@@ -510,6 +529,7 @@ class DecodeEngine:
                                      "computed_tokens": sum(
                                          lens[s] for s in full)})
         if hits:
+            self.phases.mark(PREFILL)
             suf = {s: lens[s] - plans[s].cached_len for s in hits}
             for s in hits:
                 self._set_slot_len(s, plans[s].cached_len)
@@ -520,6 +540,7 @@ class DecodeEngine:
             # rows outside the hit group write past their own committed
             # length (or into the trash page), which no mask reads back
             logits, _, hidden = self._suffix_forward(self._tokens(grid))
+            self.phases.mark(BEGIN)
             for s in hits:
                 self._set_slot_len(s, lens[s])
                 out[s] = (logits[s, suf[s] - 1].clone(),

@@ -41,7 +41,6 @@ against the step latency the loop observes, and a ``step_clock`` model
 """
 from __future__ import annotations
 
-import time
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional, Tuple
@@ -54,6 +53,8 @@ from repro_torch.serving.algorithm import SlotAdapter
 from repro_torch.serving.diffusion import DiffusionSlotAdapter
 from repro_torch.serving.engine import DecodeEngine, greedy_tokens
 from repro_torch.serving.mtp import MTPSlotAdapter
+from repro_torch.serving.spans import (ADMIT_PHASES, BEGIN, COMMIT, PLAN,
+                                       STEP_PHASES, UPLOAD, WAIT)
 from repro_torch.serving.speculative import SpeculativeSlotAdapter
 
 __all__ = ["AdmissionConfig", "AdmissionRejected", "Request", "SLOClass",
@@ -150,7 +151,55 @@ class ServingLoop:
     the controller shrinks and probes inside it against the observed
     step latency (admission keeps the analytic gate).  ``step_clock(width,
     ell) -> seconds`` substitutes a latency model for the wall clock, one
-    call per forward of a step."""
+    call per forward of a step.
+
+    Telemetry.  ``step_log`` has one entry per forward; a step's own
+    fields go on its last forward's entry.  ``step_latency_s`` is the host
+    time of the adapter's ``run_step`` (what the controller observes).
+    The step's host time and its phases, in seconds, are read at each
+    phase boundary from one clock (``serving.spans``), so the five sum to
+    the whole:
+
+      host_step_s    the whole ``step()``, budget to retire
+      host_plan_s    ``budget()``, ``width()``, the token array, drafts,
+                     and the entry's own telemetry (the modelled
+                     attention slack)
+      host_upload_s  the tokens to the device, the block tables, the
+                     copies into the graph's static buffers
+      host_launch_s  the graph's replay (eagerly: the forward) and the
+                     launch counters
+      host_wait_s    the argmax and the tokens' readback: the host
+                     waiting on the device
+      host_commit_s  acceptance, ``commit_slots``, retiring finished
+                     requests
+
+    A diffusion step's several forwards add to the same five.  On a CUDA
+    engine each forward's entry whose results were read back also has
+    ``graph_device_s``: the device's time from the decode graph's input
+    copy to its last node, bubbles inside it and the wait for its launch
+    included (``DecodeGraphs.device_seconds``).
+
+    An admitting ``admit()`` puts on its last ``engine.prefill_log``
+    entry ``rids`` (the admitted request ids) and, in seconds:
+
+      host_admit_s    the whole call
+      host_select_s   candidates, budgets, block costs, the pool's plans
+      host_prefill_s  the grid input and the prefill graph's launch
+      host_scatter_s  the paged scatter's index arrays and its launch
+      host_wait_s     the host waiting on the device: the scatter's
+                      index upload (from pageable memory, so it waits
+                      for the prefill), the first tokens' argmax and
+                      readback
+      host_begin_s    slot bookkeeping, ``register_prompt``, the
+                      adapter's ``begin``
+
+    While a profiler runs, each call and phase is also a
+    ``torch.profiler.record_function`` range (``serve.step``,
+    ``serve.step.plan``, ..., ``serve.admit.select``, ...) on its
+    timeline; with none running no range is made.  A call that began
+    under a profiler, or after one ran on the engine's calls, is marked
+    ``profiled: True`` on its entry: its times hold the profiler's cost,
+    which outlasts the profiler (``serving.spans``)."""
 
     MODES = ("greedy", "speculative", "diffusion", "mtp")
 
@@ -347,7 +396,11 @@ class ServingLoop:
         request still fits >= 1 position inside the budget (and, paged,
         the pool covers each reservation), then prefill ALL newly admitted
         slots together.  Returns the number admitted.  One batched argmax
-        and one small readback give every fresh request its first token."""
+        and one small readback give every fresh request its first token.
+        An admitting call's host phases and request ids go on its last
+        ``engine.prefill_log`` entry (class docstring)."""
+        phases = self.engine.phases
+        phases.start("serve.admit", ADMIT_PHASES)
         admitted: Dict[int, Request] = {}
         promised = 0                      # blocks owed to this group
         ell = int(self.engine.slot_lens_host.max())
@@ -370,14 +423,17 @@ class ServingLoop:
             admitted[slot] = cand
             ell = ell_next
         if not admitted:
+            phases.stop()
             return 0
         outs = self.engine.prefill_slots(
             {s: self._admit_tokens(r) for s, r in admitted.items()},
             reserve={s: self._reserve_len(r) for s, r in admitted.items()})
         fresh = sorted(s for s, r in admitted.items() if not r.generated)
         if fresh:
+            phases.mark(WAIT)
             first = np.asarray(greedy_tokens(torch.stack(
                 [outs[s][0] for s in fresh])).cpu())
+            phases.mark(BEGIN)
             for i, s in enumerate(fresh):
                 req = admitted[s]
                 req.pending = int(first[i])
@@ -387,6 +443,9 @@ class ServingLoop:
                 self.resumed_total += 1
             self.active[slot] = req
             self.adapter.begin(req, outs[slot][1])
+        entry = self.engine.prefill_log[-1]
+        phases.stop(entry)
+        entry["rids"] = [r.rid for r in admitted.values()]
         return len(admitted)
 
     # ------------------------------------------------------------------
@@ -436,8 +495,22 @@ class ServingLoop:
                 "kv_tile_util": slack["kv_tile_utilization"],
             })
         self.step_log.append(entry)
-        return self.engine.decode_slots(
+        phases = self.engine.phases
+        phases.mark(UPLOAD)
+        out = self.engine.decode_slots(
             torch.as_tensor(tokens, device=self.engine.device))
+        phases.mark(WAIT)
+        return out
+
+    def read_back(self, phase: str) -> None:
+        """The last forward's results are on the host: the step goes on in
+        ``phase``, and on a CUDA engine the forward's entry takes its
+        decode graph's device time (``graph_device_s``), whose events the
+        readback has waited for."""
+        self.engine.phases.mark(phase)
+        seconds = self.engine.graphs.device_seconds()
+        if seconds is not None:
+            self.step_log[-1]["graph_device_s"] = seconds
 
     # ------------------------------------------------------------------
     def step(self) -> bool:
@@ -446,17 +519,19 @@ class ServingLoop:
         when no work remains."""
         if not self.active:
             return bool(self.waiting)
+        phases = self.engine.phases
+        phases.start("serve.step", STEP_PHASES)
         budget = self.budget()
         slots = sorted(self.active)
         width = self.adapter.width(len(slots), budget)
         mark = len(self.step_log)
-        t0 = time.perf_counter()
+        t0 = phases.mark(PLAN)
         self.adapter.run_step(slots, width, budget)
         # --- step latency + controller feedback ------------------------
         # run_step waits on its token readback, so the host clock spans
         # the step's device work; step_clock substitutes a latency model
         # per forward
-        dt = time.perf_counter() - t0
+        dt = phases.mark(COMMIT) - t0
         new = self.step_log[mark:]
         if new:
             if self.step_clock is not None:
@@ -478,6 +553,7 @@ class ServingLoop:
                 del self.active[s]
                 self.engine.release_slot(s)
                 self.free_slots.append(s)
+        phases.stop(new[-1] if new else None)
         return bool(self.active or self.waiting)
 
     # ------------------------------------------------------------------
