@@ -516,6 +516,15 @@ REDUCED_GEOMETRIES = {"stablelm_3b": (4, 4, 16), "llada_mini_like": (4, 2, 16)}
 # prompts (256 positions past the window) in a 4608-position cache
 MIXTRAL_WINDOW = 4096
 LONG_MAX_LEN = 4608
+# the serving cells' decode attention: (traffic file, (h, kv, dh)) per
+# cell, rows at the cell's stationary lengths in tables of the cells'
+# max_len (2560 positions)
+CELL_ATTENTION = {
+    "stablelm_3b.long_answer_c16": ("long_answer_c16", (32, 32, 80)),
+    "stablelm_3b.long_prompt_c16": ("long_prompt_c16", (32, 32, 80)),
+    "granite_moe_3b_a800m.long_answer_c40": ("long_answer_c40", (24, 8, 64)),
+}
+CELL_MAX_LEN = 2560
 LONG_PROMPT = 4352
 # mixtral_8x22b runs at full width and this depth (8 of its 56 layers:
 # 2.0e10 parameters, 41 GB in bf16; the full depth needs ~281 GB)
@@ -649,19 +658,22 @@ def check_kernels(ops) -> dict:
         q, k, v, lens_t, bt = kernel_inputs(
             paged=paged, n=n, h=h, kv=kv, dh=dh, lens=lens, layout=layout,
             seed=cases, max_len=max_len)
-        tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+        tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
         if paged:
             out = ops.decode_attention_paged(q, k, v, lens_t, bt,
                                              window=window, tiles=tiles)
+            span = ops.paged_launch_args(q.shape, k.shape, bt.shape,
+                                         window)[8]
             ref = ops.decode_attention_paged_ref(q, k, v, lens_t, bt,
                                                  window=window)
         else:
             out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
                                               tiles=tiles)
             ref = ops.decode_attention_ref(q, k, v, lens_t, window=window)
+            span = ops.dense_launch_args(q.shape, k.shape, window)[8]
         rep = ops.slack_report(n, lens, max_len, head_dim=dh,
                                k_block=16 if paged else ops.K_BLOCK,
-                               window=window)
+                               window=window, span=span)
         torch.cuda.synchronize()
         mode = "paged" if paged else "dense"
         e = (out.float() - ref.float()).abs()
@@ -672,10 +684,11 @@ def check_kernels(ops) -> dict:
         if not torch.isfinite(out).all() or bad.any():
             raise AssertionError(f"kernel disagrees with its plain version: "
                                  f"{where}: max abs err {float(e.max()):.4g}")
-        want = kv * rep["kv_tiles_executed"]
-        if int(tiles.item()) != want:
-            raise AssertionError(f"{where}: kernel ran {int(tiles.item())} kv "
-                                 f"tiles, slack_report says {want}")
+        want = [kv * rep["kv_tiles_executed"], kv * rep["kv_spans_executed"]]
+        if [int(x) for x in tiles] != want:
+            raise AssertionError(f"{where}: kernel ran {tiles.tolist()} kv "
+                                 f"tiles and spans, slack_report says "
+                                 f"{want}")
         cases += 1
         return rep
 
@@ -728,6 +741,14 @@ def check_kernels(ops) -> dict:
             for n in (1, 9, 13, 16, 17):
                 run(paged, n, h, kv, dh, [0, 8, 37, MAX_LEN - n], None,
                     "fragmented" if paged else "")
+    # the serving cells' geometries at their stationary lengths in
+    # 2560-position tables, rows cut into spans; the dense mode beside
+    for cell, (traffic, (h, kv, dh)) in CELL_ATTENTION.items():
+        lens = cell_lengths(traffic)
+        lens[0] = CELL_MAX_LEN - 1
+        for window in (None, 1000):
+            run(True, 1, h, kv, dh, lens, window, "fragmented", CELL_MAX_LEN)
+        run(False, 1, h, kv, dh, lens[:8], None, max_len=CELL_MAX_LEN)
     # mixtral's window of 4096 past the window, in a 4608-position cache:
     # the skip rule's lower bound drops the first tiles (at 4352, 2 dense
     # tiles or 16 pages), so fewer tiles run than the grid holds
@@ -747,14 +768,14 @@ def check_kernels(ops) -> dict:
     return err
 
 
-def kernel_bound_ms(lens, n, h, kv, dh, paged) -> tuple:
+def kernel_bound_ms(lens, n, h, kv, dh, paged, max_len=MAX_LEN) -> tuple:
     """Least time for one call: K/V of the visible positions, q, o, lens
     (and the block table) each moved once, against the score and P·V
     multiply-adds at the bf16 tensor rate.  Returns (ms, 'bytes'|'operations')."""
     b = len(lens)
     visible = sum(ln + n for ln in lens)
     bytes_ = (2 * kv * dh * 2 * visible + 2 * b * n * h * dh * 2 + 4 * b
-              + (4 * b * MAX_LEN // 16 if paged else 0))
+              + (4 * b * max_len // 16 if paged else 0))
     flops = sum(4 * h * dh * (ln + j + 1) for ln in lens for j in range(n))
     return _bound(bytes_, flops)
 
@@ -810,6 +831,51 @@ def time_kernels(ops, n: int, shape=(32, 32, 80), lens=(64, 72, 80, 96)
             "library_ms": time_ms(library, flush),
             "bound_ms": bound, "bound_by": by,
             "tile_bound_ms": tile_bytes / PEAK_BYTES_S * 1e3}
+    return out
+
+
+def cell_lengths(traffic: str) -> list:
+    """A serving cell's stationary row lengths: each client's prompt (the
+    ``bench.loadgen.length_set`` of the cell's traffic file) plus a share
+    of an answer of the same set, the shares the midpoints of equal
+    strata, prompts, answers and shares paired by fixed permutations."""
+    from bench.loadgen import length_set
+    spec = json.loads((ROOT / "bench" / "traffic" / f"{traffic}.json")
+                      .read_text())
+    c = spec["clients"]
+    prompts = length_set(spec["prompt_len"], c)
+    answers = length_set(spec["output_len"], c)
+    rng = np.random.default_rng(0)
+    shares = rng.permutation((np.arange(c) + 0.5) / c)
+    answers = answers[rng.permutation(c)]
+    return [int(p + np.floor(f * a)) for p, f, a in zip(prompts, shares,
+                                                         answers)]
+
+
+def time_cell_kernels(ops) -> dict:
+    """The paged kernel at n = 1 over each serving cell's rows at their
+    stationary lengths (``cell_lengths``, 160-page tables), against the
+    bytes' bound; the longest row's share of the mean beside it."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for cell, (traffic, (h, kv, dh)) in CELL_ATTENTION.items():
+        lens = cell_lengths(traffic)
+        q, k, v, lens_t, bt = kernel_inputs(
+            paged=True, n=1, h=h, kv=kv, dh=dh, lens=lens,
+            layout="fragmented", seed=11, max_len=CELL_MAX_LEN)
+        ms = time_ms(lambda: ops.decode_attention_paged(q, k, v, lens_t, bt),
+                     flush)
+        bound, by = kernel_bound_ms(lens, 1, h, kv, dh, True, CELL_MAX_LEN)
+        span = ops.paged_launch_args(q.shape, k.shape, bt.shape, None)[8]
+        rep = ops.slack_report(1, lens, CELL_MAX_LEN, head_dim=dh,
+                               k_block=16, span=span)
+        out[cell] = {"rows": len(lens), "mean_len": float(np.mean(lens)),
+                     "max_len": max(lens), "ms": ms, "bound_ms": bound,
+                     "bound_by": by, "span": span,
+                     "rows_split": rep["rows_split"],
+                     "spans": rep["kv_spans_executed"] * kv}
+        del q, k, v, bt
+        torch.cuda.empty_cache()
     return out
 
 
@@ -2358,7 +2424,7 @@ def check_long_forward(mods, cfg, params, prompts, card) -> None:
         fixed = (moe.balanced_routing(t, k, cfg.ffn.n_experts,
                                       device="cuda"),
                  torch.full((t, k), 1.0 / k, device="cuda"))
-        counter = torch.zeros(1, dtype=torch.int32, device="cuda")
+        counter = torch.zeros(2, dtype=torch.int32, device="cuda")
         inner = (attn_mod.decode_attention_ragged,
                  attn_mod.decode_attention_paged)
 
@@ -2384,7 +2450,7 @@ def check_long_forward(mods, cfg, params, prompts, card) -> None:
         rep = ops.slack_report(16, lens, LONG_MAX_LEN, head_dim=a.head_dim,
                                k_block=16 if paged else ops.K_BLOCK,
                                window=a.window)
-        executed = int(counter.item())
+        executed = int(counter[0])
         expect = cfg.n_layers * a.n_kv_heads * rep["kv_tiles_executed"]
         rel = float((got - want).norm() / want.norm())
         rel_r = float((routed[0] - routed[1]).norm() / routed[1].norm())
@@ -5380,6 +5446,13 @@ def main() -> int:
                       f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} "
                       f"ms ({r['bound_by']}), executed-tile bound "
                       f"{r['tile_bound_ms']:.5f} ms [{card}]")
+    for cell, r in time_cell_kernels(ops).items():
+        print(f"  paged n=1 {cell} ({r['rows']} rows, mean length "
+              f"{r['mean_len']:.1f}, longest {r['max_len']}, span of "
+              f"{r['span']} pages, {r['spans']} blocks, rows split "
+              f"{r['rows_split']:.3f}): kernel {r['ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f} % of it [{card}]")
     moe_err = check_moe(moe_ops, moe)
     e, _, d, f = GRANITE_MOE
     moe_times = time_moe(moe_ops, moe, moe_weights(e, d, f, seed=4))

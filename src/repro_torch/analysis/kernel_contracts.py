@@ -16,7 +16,8 @@ and ``mamba_scan/ops.py``).  So the launches are checkable on any host:
          launch passes arguments the signature does not take
   KC002  a launched tile does not divide what it must or lies outside
          the kernel's limits (its ``constexpr``s): the q tile a multiple
-         of 16, the kv tile within ``kMaxKBlock``, ``dh`` within
+         of 16, the kv tile within ``kMaxKBlock``, the span of kv tiles
+         within the table and ``kMaxSpan``, ``dh`` within
          ``kMaxDh``, the MoE token block a multiple of 16 dividing the
          padded rows, the scan's positions a whole number of
          ``kSteps`` chunks and ``ds`` within ``kMaxState``
@@ -255,12 +256,19 @@ def check_launch(record: LaunchRecord, ext: Optional[ExternSignature],
 
     if record.entry in ATTENTION:
         kb = v["k_block"] if "k_block" in v else v["block_size"]
+        tiles = (v["max_blocks"] if "max_blocks" in v
+                 else -(-v["s_max"] // max(kb, 1)))
         max_kb, max_dh = limit("kMaxKBlock"), limit("kMaxDh")
+        max_span = limit("kMaxSpan")
         need(v["q_block"] >= 16 and v["q_block"] % 16 == 0,
              f"q tile {v['q_block']} is not a multiple of the 16-row MMA "
              "tile")
         need(1 <= kb <= max_kb, f"kv tile {kb} outside [1, kMaxKBlock = "
                                 f"{max_kb}]")
+        if 1 <= kb <= max_kb:
+            need(1 <= v["span"] <= min(max(tiles, 1), max_span),
+                 f"span of {v['span']} kv tiles outside [1, min({tiles} "
+                 f"tiles, kMaxSpan = {max_span})]")
         need(v["dh"] % 16 == 0 and 16 <= v["dh"] <= max_dh,
              f"head_dim {v['dh']}: the kernel takes multiples of 16 up to "
              f"kMaxDh = {max_dh}")

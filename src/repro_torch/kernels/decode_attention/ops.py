@@ -12,27 +12,33 @@ bounds it) or raise; only a tensor on the CPU takes the plain version.
 
 The q tile is ``select_q_block(n, dh)`` of ``core.granularity`` — the
 M_attn the NFP predictor reads — and the kv tile is ``K_BLOCK`` for the
-dense cache and one page for the pool.  ``dense_launch_args`` /
+dense cache and one page for the pool.  The kernel cuts each (row, kv
+head, q tile)'s executed kv range into spans of ``kv_span`` tiles, one
+block each, merged in span order inside the same launch.  The span is a
+pure function of the launch's shapes, never of the lengths (they live on
+the device and change every graph replay).  ``dense_launch_args`` /
 ``paged_launch_args`` give a launch's scalar arguments as pure functions
 of the shapes: each wrapper passes exactly their tuple to the entry
-point, so ``repro_torch.analysis`` checks the tiles on any host.  The
-kernel pads the last q tile logically: rows past ``n`` are skipped, so no
-padded copy of q exists.
+point, so ``repro_torch.analysis`` checks the tiles and the span on any
+host.  The kernel pads the last q tile logically: rows past ``n`` are
+skipped, so no padded copy of q exists.
 
 ``slack_report`` models one forward's physical work in numpy (useful vs
 padded query rows, executed vs grid kv tiles under the kernel's per-row
-skip rule); the kernel executes exactly its ``kv_tiles_executed``.
+skip rule, and, given the span, the spans executed); the kernel executes
+exactly its ``kv_tiles_executed`` and ``kv_spans_executed``.
 
-``decode_attention_split`` emulates the kernel's split of the kv range
-inside a block, in either addressing mode (per-split running max, sum and
-accumulator over the same chunk partition, merged in the kernel's order);
-the tests hold it against the reference's dense and paged Pallas kernels.
-It is on no serving path.
+``decode_attention_split`` emulates the kernel's partition of the kv
+range, in either addressing mode: spans of tiles, inside each span the
+warps' split of its chunks (per-split running max, sum and accumulator),
+merged in split order, then the spans merged in span order; the tests
+hold it against the reference's dense and paged Pallas kernels.  It is
+on no serving path.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Union
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -43,17 +49,23 @@ from repro_torch.kernels.build import load_library
 
 K_BLOCK = 128
 NEG_INF = -1e30
-# the kernel's partition: 16-position chunks, 64 resident query rows
+# the kernel's partition: 16-position chunks, 64-row chunks of query rows
 KV_CHUNK = 16
 TILE_ROWS = 64
+#: kv positions of a span: long enough that a block's prologue (the row
+#: length and its table entries, one round trip, then its first copies) and
+#: its part of the merge stay small beside the bytes it streams, short
+#: enough that a long row spreads over many blocks (on an H100, 512 beat
+#: 128, 256, 384, 768 and 1024 at the serving cells' lengths)
+SPAN_POSITIONS = 512
 
 Tensor = torch.Tensor
 Lens = Union[int, Tensor]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "decode_attention_dense": [_P] * 5 + [_I] * 9 + [_F, _P, _P],
-    "decode_attention_paged": [_P] * 6 + [_I] * 9 + [_F, _P, _P],
+    "decode_attention_dense": [_P] * 5 + [_I] * 10 + [_F] + [_P] * 4,
+    "decode_attention_paged": [_P] * 6 + [_I] * 10 + [_F] + [_P] * 4,
 }
 
 
@@ -130,25 +142,61 @@ def decode_attention_paged_ref(q: Tensor, k_pool: Tensor, v_pool: Tensor,
 
 
 def kv_splits(rows: int) -> int:
-    """Splits of the kv range in the kernel for ``rows`` (<= 64) resident
-    query rows: four warps over 16-row m-tiles, so 4 for one m-tile, 2 for
-    two, 1 for three or four."""
+    """Splits of a span's chunks over the kernel's four warps for ``rows``
+    (<= 64) query rows of one row chunk: 16-row m-tiles, so 4 for one
+    m-tile, 2 for two, 1 for three or four."""
     return {1: 4, 2: 2}.get(cdiv(rows, 16), 1)
+
+
+def kv_span(k_block: int, n_kv_tiles: int) -> int:
+    """Kv tiles of one span of a launch whose rows' tables hold
+    ``n_kv_tiles`` tiles of ``k_block`` positions: ``SPAN_POSITIONS``
+    positions, or the whole table where that is shorter (one span: no
+    merge)."""
+    return min(n_kv_tiles, cdiv(SPAN_POSITIONS, k_block))
+
+
+def kv_spans(lo_tile: int, hi_tile: int, span: int) -> List[Tuple[int, int]]:
+    """The kernel's spans of one range's executed tiles ``lo_tile ..
+    hi_tile - 1``: ``(t0, t1)`` per live block, in span order; span j
+    holds table tiles ``j*span .. (j+1)*span - 1``.  An empty range keeps
+    one block, which stores zeros."""
+    if hi_tile <= lo_tile:
+        return [(0, 0)]
+    return [(max(lo_tile, j * span), min(hi_tile, (j + 1) * span))
+            for j in range(lo_tile // span, (hi_tile - 1) // span + 1)]
+
+
+def _merge(parts):
+    """Online-softmax partials (m, l, acc) merged in their order:
+    (max, sum, accumulator) over the common max."""
+    m_all = torch.stack([pm for pm, _, _ in parts]).amax(0)
+    l_all = torch.zeros_like(m_all)
+    a_all = torch.zeros_like(parts[0][2])
+    for pm, pl, pa in parts:
+        f = torch.exp(pm - m_all)
+        l_all = l_all + f * pl
+        a_all = a_all + f[..., None] * pa
+    return m_all, l_all, a_all
 
 
 def decode_attention_split(q: Tensor, k: Tensor, v: Tensor,
                            cache_lens: Lens,
                            block_tables: Optional[Tensor] = None, *,
-                           window: Optional[int] = None) -> Tensor:
+                           window: Optional[int] = None,
+                           span: Optional[int] = None) -> Tensor:
     """The kernel's arithmetic in float32, dense (``block_tables`` None:
     k/v the (b, s, kv, dh) cache, kv tile ``K_BLOCK``, zero past s) or
-    paged (k/v the pool, kv tile its page): per (row, q tile, kv head) and
-    chunk of at most ``TILE_ROWS`` query rows, the executed positions (the
-    skip rule's whole tiles) in ``KV_CHUNK``-position chunks, chunk i to
-    split ``i % kv_splits(rows)``; each split runs its own online softmax
-    (scores masked to ``NEG_INF``) over its chunks in order, and the splits
-    merge in split order; an empty row gives 0.  Same arguments and result
-    as ``decode_attention_ragged`` / ``decode_attention_paged``."""
+    paged (k/v the pool, kv tile its page): per (row, q tile, kv head) the
+    executed tiles (the skip rule's) cut into ``kv_spans`` of ``span``
+    tiles (default: the launch's ``kv_span``);
+    per span and chunk of at most ``TILE_ROWS`` query rows, the span's
+    positions in ``KV_CHUNK``-position chunks, chunk i to split ``i %
+    kv_splits(rows)``; each split runs its own online softmax (scores
+    masked to ``NEG_INF``) over its chunks in order, the splits merge in
+    split order into the span's partial, and the spans merge in span
+    order; an empty row gives 0.  Same arguments and result as
+    ``decode_attention_ragged`` / ``decode_attention_paged``."""
     b, n, h, dh = q.shape
     kv = k.shape[2]
     g = h // kv
@@ -161,6 +209,8 @@ def decode_attention_split(q: Tensor, k: Tensor, v: Tensor,
         k_virt = paged_gather(k, block_tables).float()
         v_virt = paged_gather(v, block_tables).float()
     qb = select_q_block(n, dh)
+    if span is None:
+        span = kv_span(kb, n_tiles)
     scale = 1.0 / (dh ** 0.5)
     lens = row_lens(cache_lens, b, q.device).tolist()
     out = torch.zeros((b, n, h, dh), dtype=torch.float32, device=q.device)
@@ -170,52 +220,53 @@ def decode_attention_split(q: Tensor, k: Tensor, v: Tensor,
             hi_tile = min(n_tiles, cdiv(ln + min(n, q0 + qb), kb))
             lo_tile = (0 if window is None
                        else max(0, (ln + q0 - window + 1) // kb))
-            pos0, pos1 = lo_tile * kb, hi_tile * kb
-            chunks = cdiv(pos1 - pos0, KV_CHUNK) if pos1 > pos0 else 0
             # (kv, g*nq, dh), row = gi*nq + qi (the Pallas g*q_block fold)
             qt = q[bi, q0:q0 + nq].float().reshape(nq, kv, g, dh).permute(
                 1, 2, 0, 3).reshape(kv, g * nq, dh)
             q_pos = ln + q0 + torch.arange(g * nq, device=q.device) % nq
-            for c0 in range(0, g * nq, TILE_ROWS):
-                qc, qp = qt[:, c0:c0 + TILE_ROWS], q_pos[c0:c0 + TILE_ROWS]
-                splits, parts = kv_splits(qc.shape[1]), []
-                for si in range(splits):
-                    m = torch.full(qc.shape[:2], NEG_INF, device=q.device)
-                    l = torch.zeros_like(m)
-                    acc = torch.zeros_like(qc)
-                    for ci in range(si, chunks, splits):
-                        pos = pos0 + ci * KV_CHUNK + torch.arange(
-                            KV_CHUNK, device=q.device)
-                        idx = pos.clamp(max=pos1 - 1)
-                        sc = torch.einsum("krd,pkd->krp", qc,
-                                          k_virt[bi, idx]) * scale
-                        keep = (pos < pos1)[None, :] & (pos[None, :]
-                                                        <= qp[:, None])
-                        if window is not None:
-                            keep &= pos[None, :] > qp[:, None] - window
-                        sc = torch.where(keep[None], sc, NEG_INF)
-                        m_new = torch.maximum(m, sc.amax(-1))
-                        alpha = torch.exp(m - m_new)
-                        pr = torch.exp(sc - m_new[..., None])
-                        l = alpha * l + pr.sum(-1)
-                        acc = alpha[..., None] * acc + torch.einsum(
-                            "krp,pkd->krd", pr, v_virt[bi, idx])
-                        m = m_new
-                    parts.append((m, l, acc))
-                m_all = torch.stack([pm for pm, _, _ in parts]).amax(0)
-                l_all = torch.zeros_like(m_all)
-                a_all = torch.zeros_like(qc)
-                for pm, pl, pa in parts:               # in split order
-                    f = torch.exp(pm - m_all)
-                    l_all = l_all + f * pl
-                    a_all = a_all + f[..., None] * pa
-                l_all = torch.where(l_all == 0, 1.0, l_all)
-                o = a_all / l_all[..., None]           # (kv, rows, dh)
-                rows = torch.arange(c0, c0 + qc.shape[1], device=q.device)
-                gi, qi = rows // nq, rows % nq
-                heads = (torch.arange(kv, device=q.device)[:, None] * g
-                         + gi[None, :])
-                out[bi, q0 + qi[None, :].expand_as(heads), heads] = o
+            spans = []
+            for t0, t1 in kv_spans(lo_tile, hi_tile, span):
+                pos0, pos1 = t0 * kb, t1 * kb
+                chunks = cdiv(pos1 - pos0, KV_CHUNK)
+                row_parts = []
+                for c0 in range(0, g * nq, TILE_ROWS):
+                    qc = qt[:, c0:c0 + TILE_ROWS]
+                    qp = q_pos[c0:c0 + TILE_ROWS]
+                    splits, parts = kv_splits(qc.shape[1]), []
+                    for si in range(splits):
+                        m = torch.full(qc.shape[:2], NEG_INF, device=q.device)
+                        l = torch.zeros_like(m)
+                        acc = torch.zeros_like(qc)
+                        for ci in range(si, chunks, splits):
+                            pos = pos0 + ci * KV_CHUNK + torch.arange(
+                                KV_CHUNK, device=q.device)
+                            idx = pos.clamp(max=pos1 - 1)
+                            sc = torch.einsum("krd,pkd->krp", qc,
+                                              k_virt[bi, idx]) * scale
+                            keep = (pos < pos1)[None, :] & (pos[None, :]
+                                                            <= qp[:, None])
+                            if window is not None:
+                                keep &= pos[None, :] > qp[:, None] - window
+                            sc = torch.where(keep[None], sc, NEG_INF)
+                            m_new = torch.maximum(m, sc.amax(-1))
+                            alpha = torch.exp(m - m_new)
+                            pr = torch.exp(sc - m_new[..., None])
+                            l = alpha * l + pr.sum(-1)
+                            acc = alpha[..., None] * acc + torch.einsum(
+                                "krp,pkd->krd", pr, v_virt[bi, idx])
+                            m = m_new
+                        parts.append((m, l, acc))
+                    row_parts.append(_merge(parts))    # in split order
+                spans.append(tuple(torch.cat(x, 1) for x in zip(*row_parts)))
+            _, l_all, a_all = (spans[0] if len(spans) == 1
+                               else _merge(spans))     # in span order
+            l_all = torch.where(l_all == 0, 1.0, l_all)
+            o = a_all / l_all[..., None]               # (kv, rows, dh)
+            rows = torch.arange(g * nq, device=q.device)
+            gi, qi = rows // nq, rows % nq
+            heads = (torch.arange(kv, device=q.device)[:, None] * g
+                     + gi[None, :])
+            out[bi, q0 + qi[None, :].expand_as(heads), heads] = o
     return out.to(q.dtype)
 
 
@@ -261,11 +312,12 @@ def _device_lens(cache_lens: Lens, b: int, q: Tensor) -> Tensor:
 def dense_launch_args(q_shape, k_shape, window: Optional[int]) -> tuple:
     """The scalar arguments of one ``decode_attention_dense`` launch, in
     the entry point's order, from q's (b, n, h, dh) and the cache's (b, s,
-    kv, dh) shapes: (b, n, h, kv, dh, s_max, q_block, k_block, window (-1
-    for none), scale)."""
+    kv, dh) shapes: (b, n, h, kv, dh, s_max, q_block, k_block, span,
+    window (-1 for none), scale)."""
     b, n, h, dh = (int(x) for x in q_shape)
     s, kv = int(k_shape[1]), int(k_shape[2])
     return (b, n, h, kv, dh, s, select_q_block(n, dh), K_BLOCK,
+            kv_span(K_BLOCK, cdiv(s, K_BLOCK)),
             -1 if window is None else int(window), 1.0 / (dh ** 0.5))
 
 
@@ -274,12 +326,51 @@ def paged_launch_args(q_shape, pool_shape, tables_shape,
     """The scalar arguments of one ``decode_attention_paged`` launch, in
     the entry point's order, from q's (b, n, h, dh), the pool's (n_phys,
     bs, kv, dh) and the block tables' (b, max_blocks) shapes: (b, n, h,
-    kv, dh, block_size, max_blocks, q_block, window (-1 for none),
+    kv, dh, block_size, max_blocks, q_block, span, window (-1 for none),
     scale)."""
     b, n, h, dh = (int(x) for x in q_shape)
     bs, kv = int(pool_shape[1]), int(pool_shape[2])
-    return (b, n, h, kv, dh, bs, int(tables_shape[1]), select_q_block(n, dh),
-            -1 if window is None else int(window), 1.0 / (dh ** 0.5))
+    max_blocks = int(tables_shape[1])
+    return (b, n, h, kv, dh, bs, max_blocks, select_q_block(n, dh),
+            kv_span(bs, max_blocks), -1 if window is None else int(window),
+            1.0 / (dh ** 0.5))
+
+
+# per device: every arrival-counter buffer made so far, the newest last.
+# None is ever freed: a captured graph keeps the raw pointer of the buffer
+# it was captured with, and replays count into it.  The counters are 0
+# between launches (the last span of a range to arrive sets its counter
+# back to 0).
+_ARRIVALS: Dict[torch.device, List[Tensor]] = {}
+
+
+def _arrivals(device: torch.device, n: int) -> Tensor:
+    held = _ARRIVALS.setdefault(device, [])
+    if not held or held[-1].numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("decode attention needs more arrival counters "
+                               "than it holds: launch once at these shapes "
+                               "before the capture")
+        grow = 2 * held[-1].numel() if held else 4096
+        held.append(torch.zeros(max(n, grow), dtype=torch.int32,
+                                device=device))
+    return held[-1]
+
+
+def _span_buffers(q: Tensor, kv: int, n_kv_tiles: int, q_block: int,
+                  span: int) -> Tuple[Optional[Tensor], Optional[Tensor]]:
+    """For a launch of more than one span, the f32 scratch for every
+    span's partial (per (row, kv head, q tile) and span, the g*min(q_block,
+    n) rows a q tile holds, dh + 2 floats each) and one arrival counter per
+    (row, kv head, q tile); (None, None) for a launch of one span."""
+    b, n, h, dh = q.shape
+    n_spans = cdiv(n_kv_tiles, span)
+    if n_spans == 1:
+        return None, None
+    ranges = b * kv * cdiv(n, q_block)
+    part = torch.empty(ranges * n_spans * (h // kv) * min(q_block, n)
+                       * (dh + 2), dtype=torch.float32, device=q.device)
+    return part, _arrivals(q.device, ranges)
 
 
 def _ptr(t: Optional[Tensor]) -> Optional[int]:
@@ -290,25 +381,35 @@ def _stream(q: Tensor) -> int:
     return torch.cuda.current_stream(q.device).cuda_stream
 
 
+def _check_tiles(tiles: Optional[Tensor]) -> None:
+    if tiles is not None and tiles.numel() < 2:
+        raise ValueError("tiles must hold two int32 counters: kv tiles "
+                         "and spans executed")
+
+
 def decode_attention_ragged(q: Tensor, k_cache: Tensor, v_cache: Tensor,
                             cache_lens: Lens, *,
                             window: Optional[int] = None,
                             tiles: Optional[Tensor] = None) -> Tensor:
     """q: (b, n, h, dh); k/v_cache: (b, s, kv, dh); cache_lens: scalar or
-    (b,).  ``tiles`` (a one-element int32 CUDA tensor) accumulates the kv
-    tiles the kernel executes, summed over kv heads."""
+    (b,).  ``tiles`` (a two-element int32 CUDA tensor) accumulates the kv
+    tiles and the spans the kernel executes, summed over kv heads."""
     if q.device.type == "cpu":
         return decode_attention_ref(q, k_cache, v_cache, cache_lens,
                                     window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no decode-attention path for {q.device}")
     _check(q, k_cache, v_cache, window, K_BLOCK)
+    _check_tiles(tiles)
     lens = _device_lens(cache_lens, q.shape[0], q)
     o = torch.empty_like(q)
+    args = dense_launch_args(q.shape, k_cache.shape, window)
+    part, count = _span_buffers(q, args[3], cdiv(k_cache.shape[1], K_BLOCK),
+                                args[6], args[8])
     err = _kernels().decode_attention_dense(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
-        lens.data_ptr(), *dense_launch_args(q.shape, k_cache.shape, window),
-        _ptr(tiles), _stream(q))
+        lens.data_ptr(), *args, _ptr(part), _ptr(count), _ptr(tiles),
+        _stream(q))
     if err:
         raise RuntimeError(f"decode_attention_dense launch failed: CUDA "
                            f"error {err}")
@@ -337,7 +438,8 @@ def decode_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
     ``bs`` is this launch's kv tile; block_tables: (b, max_blocks) int32
     logical tile -> physical page (unassigned entries name the trash
     page).  Row b's queries sit at logical positions cache_lens[b] ..
-    cache_lens[b]+n-1, their K/V already in the pool."""
+    cache_lens[b]+n-1, their K/V already in the pool.  ``tiles`` as in
+    ``decode_attention_ragged``."""
     if q.device.type == "cpu":
         return decode_attention_paged_ref(q, k_pool, v_pool, cache_lens,
                                           block_tables, window=window)
@@ -350,13 +452,17 @@ def decode_attention_paged(q: Tensor, k_pool: Tensor, v_pool: Tensor,
             or block_tables.shape[0] != b):
         raise ValueError("block_tables must be a contiguous (b, max_blocks) "
                          "int32 tensor on q's device")
+    _check_tiles(tiles)
     lens = _device_lens(cache_lens, b, q)
     o = torch.empty_like(q)
+    args = paged_launch_args(q.shape, k_pool.shape, block_tables.shape,
+                             window)
+    part, count = _span_buffers(q, args[3], block_tables.shape[1], args[7],
+                                args[8])
     err = _kernels().decode_attention_paged(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), o.data_ptr(),
-        lens.data_ptr(), block_tables.data_ptr(),
-        *paged_launch_args(q.shape, k_pool.shape, block_tables.shape,
-                           window), _ptr(tiles), _stream(q))
+        lens.data_ptr(), block_tables.data_ptr(), *args, _ptr(part),
+        _ptr(count), _ptr(tiles), _stream(q))
     if err:
         raise RuntimeError(f"decode_attention_paged launch failed: CUDA "
                            f"error {err}")
@@ -375,7 +481,8 @@ def slack_report(n: int, cache_lens, s_max: int, *,
                  head_dim: int = 128,
                  k_block: int = K_BLOCK,
                  window: Optional[int] = None,
-                 active=None) -> Dict[str, float]:
+                 active=None,
+                 span: Optional[int] = None) -> Dict[str, float]:
     """Model one ragged decode forward's physical work (per kv head).
 
     Kv tile ij of batch row b and q tile iq executes iff
@@ -384,7 +491,12 @@ def slack_report(n: int, cache_lens, s_max: int, *,
             len_b + iq*q_block - window + 1                      (lower)
     ``active`` (b,) bool marks rows carrying real requests; the others
     still execute but count as slack.  For the paged launch pass
-    ``k_block=block_size`` and the table-covered ``s_max``.
+    ``k_block=block_size`` and the table-covered ``s_max``.  ``span`` (the
+    launch's kv tiles per span, ``dense_launch_args`` /
+    ``paged_launch_args``; None: the whole table) gives the blocks that
+    run, ``kv_spans_executed`` (``kv_spans``, an empty range one), and
+    ``rows_split``, the share of (row, q tile) ranges cut into more than
+    one span.
     """
     lens = np.asarray(cache_lens, np.int64).ravel()
     b = lens.size
@@ -395,9 +507,11 @@ def slack_report(n: int, cache_lens, s_max: int, *,
     n_q_tiles = n_pad // qb
     s_pad = round_up(s_max, k_block)
     n_kv_tiles = s_pad // k_block
-
+    span = n_kv_tiles if span is None else span
     executed = 0
     useful = 0
+    spans = 0
+    split = 0
     for bi in range(b):
         for iq in range(n_q_tiles):
             hi = lens[bi] + min(n, (iq + 1) * qb)        # kv end (exclusive)
@@ -410,6 +524,9 @@ def slack_report(n: int, cache_lens, s_max: int, *,
             executed += t
             if act[bi]:
                 useful += t
+            live = len(kv_spans(lo_tile, tiles, span))
+            spans += live
+            split += live > 1
 
     rows_logical = int(act.sum()) * n
     rows_physical = b * n_pad
@@ -424,4 +541,6 @@ def slack_report(n: int, cache_lens, s_max: int, *,
         "kv_tiles_grid": grid,
         "kv_tile_utilization": useful / max(executed, 1),
         "kv_tiles_skipped": grid - executed,
+        "kv_spans_executed": spans,
+        "rows_split": split / max(b * n_q_tiles, 1),
     }

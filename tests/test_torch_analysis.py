@@ -410,6 +410,8 @@ BAD_TILES = [
     ("decode_attention_dense", {"kv": 5}, "group"),
     ("decode_attention_paged", {"block_size": 0}, "kMaxKBlock"),
     ("decode_attention_paged", {"window": 0}, "window"),
+    ("decode_attention_paged", {"span": 0}, "kMaxSpan"),
+    ("decode_attention_dense", {"span": 3}, "kMaxSpan"),
     ("moe_ffn", {"token_block": 8}, "16-row"),
     ("moe_ffn", {"m_pad": 72}, "divide"),
     ("moe_ffn", {"f": 1000}, "512"),
@@ -440,7 +442,9 @@ def test_kc002_a_bad_tile(sources, exts, entry, change, words):
 def test_kc002_limits_come_from_the_kernels_constexprs(sources, exts):
     bigger = dict(sources, decode_attention=sources[
         "decode_attention"].replace("kMaxKBlock = 128", "kMaxKBlock = 256"))
-    launch = _launch("decode_attention_dense", exts, sources, k_block=256)
+    # one 256-position tile covers the 256-position cache: a span of one
+    launch = _launch("decode_attention_dense", exts, sources, k_block=256,
+                     span=1)
     assert kc.check_launches([launch], bigger) == []
 
 
@@ -775,8 +779,8 @@ class _FakeEntry:
 @pytest.fixture
 def fake_kernels(monkeypatch):
     """Fake loaded libraries in ``kernels.build._loaded``, a fake stream,
-    ``torch.empty`` that ignores the device and the wrappers' lengths
-    taken as given."""
+    ``torch.empty`` that ignores the device, the wrappers' lengths taken
+    as given and host counters."""
     from repro_torch.kernels import build
     from repro_torch.kernels.decode_attention import ops as attn
     libs = {}
@@ -792,6 +796,8 @@ def fake_kernels(monkeypatch):
     monkeypatch.setattr(torch, "empty",
                         lambda *a, device=None, **k: real_empty(*a, **k))
     monkeypatch.setattr(attn, "row_lens", lambda lens, b, device: lens)
+    monkeypatch.setattr(attn, "_arrivals", lambda device, n: real_empty(
+        n, dtype=torch.int32).zero_())
     return libs
 
 

@@ -92,12 +92,12 @@ def test_paged_kernel_matches_plain(ops, n):
     k, v = _bf16(g, n_phys, bs, kv, dh), _bf16(g, n_phys, bs, kv, dh)
     lens = torch.tensor([0, 5, 100, 256 - n], dtype=torch.int32,
                         device="cuda")
-    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
     out = ops.decode_attention_paged(q, k, v, lens, tables, tiles=tiles)
     torch.testing.assert_close(
         out, ops.decode_attention_paged_ref(q, k, v, lens, tables), **TOL)
     want = ops.slack_report(n, lens.tolist(), 256, head_dim=dh, k_block=bs)
-    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+    assert int(tiles[0]) == kv * want["kv_tiles_executed"]
 
 
 @pytest.mark.parametrize("window", [None, 48])
@@ -117,7 +117,7 @@ def test_dense_kernel_cache_edge(ops, heads, n, window):
         _bf16(g, 6, s, kv, dh)
     lens = [0, 1, 127, 128, 129, s - n]
     lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
     out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
                                       tiles=tiles)
     torch.testing.assert_close(
@@ -126,7 +126,7 @@ def test_dense_kernel_cache_edge(ops, heads, n, window):
         out, ops.decode_attention_split(q, k, v, lens_t, window=window),
         **TOL)
     want = ops.slack_report(n, lens, s, head_dim=dh, window=window)
-    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+    assert int(tiles[0]) == kv * want["kv_tiles_executed"]
 
 
 def _paged_pool(g, lens, n, h, kv, dh, max_blocks, seed, bs=16):
@@ -162,7 +162,7 @@ def test_paged_kernel_pipeline(ops, heads, n, window):
     g = torch.Generator(device="cuda").manual_seed(n)
     lens = [0, 1, 15, 16, 17, 255]
     q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, 32, n)
-    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
     before = ops.decode_attention_paged.launches
     out = ops.decode_attention_paged(q, k, v, lens_t, tables, window=window,
                                      tiles=tiles)
@@ -175,7 +175,7 @@ def test_paged_kernel_pipeline(ops, heads, n, window):
                                         window=window), **TOL)
     want = ops.slack_report(n, lens, 512, head_dim=dh, k_block=16,
                             window=window)
-    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+    assert int(tiles[0]) == kv * want["kv_tiles_executed"]
 
 
 @pytest.mark.parametrize("n", [1, 17])
@@ -191,7 +191,7 @@ def test_paged_kernel_page_sizes(ops, heads, bs, n):
     max_blocks = -(-(max(lens) + n) // bs)
     q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, max_blocks,
                                           bs, bs=bs)
-    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
     for window in (None, 48):
         tiles.zero_()
         out = ops.decode_attention_paged(q, k, v, lens_t, tables,
@@ -201,7 +201,7 @@ def test_paged_kernel_page_sizes(ops, heads, bs, n):
                                                 window=window), **TOL)
         want = ops.slack_report(n, lens, max_blocks * bs, head_dim=dh,
                                 k_block=bs, window=window)
-        assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+        assert int(tiles[0]) == kv * want["kv_tiles_executed"]
 
 
 GEOMETRIES = {"mixtral": (48, 8, 128), "starcoder2": (24, 2, 128),
@@ -231,7 +231,7 @@ def test_served_geometries(ops, heads, n, paged):
         q, k, v = _bf16(g, 4, n, h, dh), _bf16(g, 4, s, kv, dh), \
             _bf16(g, 4, s, kv, dh)
         lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
     for window in (None, 48):
         tiles.zero_()
         if paged:
@@ -247,7 +247,7 @@ def test_served_geometries(ops, heads, n, paged):
         want = ops.slack_report(n, lens, s, head_dim=dh,
                                 k_block=16 if paged else ops.K_BLOCK,
                                 window=window)
-        assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+        assert int(tiles[0]) == kv * want["kv_tiles_executed"]
 
 
 @pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
@@ -265,7 +265,7 @@ def test_window_past_4096(ops, n, paged):
     if paged:
         q, k, v, lens_t, tables = _paged_pool(g, lens, n, h, kv, dh, s // 16,
                                               n)
-        tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+        tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
         out = ops.decode_attention_paged(q, k, v, lens_t, tables,
                                          window=window, tiles=tiles)
         ref = ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
@@ -274,7 +274,7 @@ def test_window_past_4096(ops, n, paged):
         q, k, v = _bf16(g, 5, n, h, dh), _bf16(g, 5, s, kv, dh), \
             _bf16(g, 5, s, kv, dh)
         lens_t = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        tiles = torch.zeros(1, dtype=torch.int32, device="cuda")
+        tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
         out = ops.decode_attention_ragged(q, k, v, lens_t, window=window,
                                           tiles=tiles)
         ref = ops.decode_attention_ref(q, k, v, lens_t, window=window)
@@ -282,8 +282,122 @@ def test_window_past_4096(ops, n, paged):
     want = ops.slack_report(n, lens, s, head_dim=dh,
                             k_block=16 if paged else ops.K_BLOCK,
                             window=window)
-    assert int(tiles.item()) == kv * want["kv_tiles_executed"]
+    assert int(tiles[0]) == kv * want["kv_tiles_executed"]
     assert want["kv_tiles_executed"] < want["kv_tiles_grid"]
+
+
+def _span(ops, q, k, tables):
+    """The span (kv tiles) of the paged launch at these shapes."""
+    return ops.paged_launch_args(q.shape, k.shape, tables.shape, None)[8]
+
+
+# serving-cell geometries at stationary lengths: 16 rows of stablelm_3b and
+# 40 of granite_moe_3b_a800m in 160-page (2560-position) tables, one row
+# far longer than the rest, an empty one
+SKEWED = {"stablelm": ((32, 32, 80), 16), "granite": ((24, 8, 64), 40)}
+
+
+def _skewed_lens(b, seed):
+    lens = np.random.default_rng(seed).integers(32, 900, b)
+    lens[0], lens[1] = 2400, 0
+    return [int(x) for x in lens]
+
+
+@pytest.mark.parametrize("window", [None, 1000])
+@pytest.mark.parametrize("cell", list(SKEWED))
+def test_paged_kernel_spans_at_skewed_lengths(ops, cell, window):
+    """Rows cut into spans, their partials merged inside the launch: the
+    output against the plain version, and the device counter's kv tiles
+    and spans against ``slack_report`` at the launch's span; some rows
+    take more than one span."""
+    (h, kv, dh), b = SKEWED[cell]
+    g = torch.Generator(device="cuda").manual_seed(b)
+    lens = _skewed_lens(b, b)
+    q, k, v, lens_t, tables = _paged_pool(g, lens, 1, h, kv, dh, 160, b)
+    tiles = torch.zeros(2, dtype=torch.int32, device="cuda")
+    before = ops.decode_attention_paged.launches
+    out = ops.decode_attention_paged(q, k, v, lens_t, tables, window=window,
+                                     tiles=tiles)
+    assert ops.decode_attention_paged.launches == before + 1
+    torch.testing.assert_close(
+        out, ops.decode_attention_paged_ref(q, k, v, lens_t, tables,
+                                            window=window), **TOL)
+    span = _span(ops, q, k, tables)
+    want = ops.slack_report(1, lens, 2560, head_dim=dh, k_block=16,
+                            window=window, span=span)
+    assert want["rows_split"] > 0
+    assert [int(x) for x in tiles] == [kv * want["kv_tiles_executed"],
+                                       kv * want["kv_spans_executed"]]
+
+
+def test_paged_kernel_graph_replay_resets_its_counters(ops):
+    """The paged call captured in a CUDA graph and replayed at two length
+    sets and the first again: each replay matches the plain version (the
+    arrival counters are back at 0 after every launch), and the two
+    replays at one length set are bitwise equal (the spans merge in span
+    order, whichever block arrives last)."""
+    (h, kv, dh), b = SKEWED["stablelm"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    lens_a, lens_b = _skewed_lens(b, 1), _skewed_lens(b, 2)
+    lens_b[0] = 1200
+    hi = [max(x, y) for x, y in zip(lens_a, lens_b)]
+    q, k, v, lens_t, tables = _paged_pool(g, hi, 1, h, kv, dh, 160, 3)
+    assert _span(ops, q, k, tables) < 160
+    static = lens_t.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ops.decode_attention_paged(q, k, v, static, tables)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_paged(q, k, v, static, tables)
+    got = []
+    for lens in (lens_a, lens_b, lens_a):
+        static.copy_(torch.tensor(lens, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(
+            out, ops.decode_attention_paged_ref(q, k, v, static, tables),
+            **TOL)
+        got.append(out.clone())
+    assert torch.equal(got[0], got[2])
+    assert not torch.equal(got[0], got[1])
+
+
+def test_paged_graph_keeps_its_counters_after_a_larger_launch(ops,
+                                                              monkeypatch):
+    """A graph captured at 16 rows, then an eager launch of 130 rows whose
+    4160 ranges outgrow the first 4096 arrival counters, then memory of
+    the first buffer's size handed out: replays of the graph still match
+    the plain version and leave that memory alone (the first buffer is
+    kept, not freed under the graph)."""
+    monkeypatch.setattr(ops, "_ARRIVALS", {})
+    (h, kv, dh), b = SKEWED["stablelm"]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    lens = _skewed_lens(b, 3)
+    q, k, v, lens_t, tables = _paged_pool(g, lens, 1, h, kv, dh, 160, 4)
+    ops.decode_attention_paged(q, k, v, lens_t, tables)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ops.decode_attention_paged(q, k, v, lens_t, tables)
+    big = [int(x) for x in
+           np.random.default_rng(5).integers(0, 630, 130)]
+    qb, kb, vb, lens_b, tables_b = _paged_pool(g, big, 1, h, kv, dh, 40, 6)
+    assert 130 * kv > 4096 and _span(ops, qb, kb, tables_b) < 40
+    torch.testing.assert_close(
+        ops.decode_attention_paged(qb, kb, vb, lens_b, tables_b),
+        ops.decode_attention_paged_ref(qb, kb, vb, lens_b, tables_b), **TOL)
+    torch.cuda.synchronize()
+    junk = [torch.full((4096,), 7, dtype=torch.int32, device="cuda")
+            for _ in range(4)]
+    want = ops.decode_attention_paged_ref(q, k, v, lens_t, tables)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, want, **TOL)
+    assert all(bool((j == 7).all()) for j in junk)
 
 
 def test_kernel_rejects_what_it_does_not_take(ops):

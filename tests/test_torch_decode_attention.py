@@ -119,11 +119,18 @@ def test_paged_plain_matches_reference(layout, window):
 @pytest.mark.parametrize("k_block", [16, 128])
 @pytest.mark.parametrize("n", [1, 5, 64, 65, 130])
 def test_slack_report_matches_reference(n, k_block, window):
+    """Every field of the reference's report, and without a span one
+    block per (row, q tile) range, none of them split."""
     lens = [0, 1, 15, 16, 100, 300]
     active = [True, False, True, True, False, True]
     kw = dict(head_dim=80, k_block=k_block, window=window, active=active)
-    assert ops.slack_report(n, lens, 512, **kw) == \
-        ref_ops.slack_report(n, lens, 512, **kw)
+    got = ops.slack_report(n, lens, 512, **kw)
+    want = ref_ops.slack_report(n, lens, 512, **kw)
+    assert {k: got[k] for k in want} == want
+    assert got["kv_spans_executed"] == len(lens) * (got["rows_physical"]
+                                                    // len(lens)
+                                                    // got["q_block"])
+    assert got["rows_split"] == 0.0
 
 
 def test_wrapper_rejects_unknown_device_types():
@@ -208,10 +215,77 @@ def test_paged_split_emulation_page_sizes(bs):
                                    atol=ATOL, rtol=RTOL)
 
 
-@pytest.mark.parametrize("rows,splits", [(1, 4), (16, 4), (17, 2), (32, 2),
-                                         (33, 1), (64, 1)])
-def test_kv_splits_follow_the_warp_layout(rows, splits):
+@pytest.mark.parametrize("rows,splits,lo,hi,span,spans", [
+    (1, 4, 0, 1, 16, [(0, 1)]),                       # a short row: one span
+    (16, 4, 0, 16, 16, [(0, 16)]),                    # exactly one span
+    (17, 2, 0, 17, 16, [(0, 16), (16, 17)]),          # one tile past it
+    (32, 2, 0, 0, 4, [(0, 0)]),                       # empty: one block of zeros
+    (33, 1, 5, 11, 4, [(5, 8), (8, 11)]),             # a window: aligned spans
+    (64, 1, 3, 160, 160, [(3, 160)]),                 # the whole table
+    (48, 1, 0, 110, 16, [(16 * j, min(110, 16 * j + 16))
+                         for j in range(7)]),         # one long row
+])
+def test_kv_splits_follow_the_warp_layout(rows, splits, lo, hi, span,
+                                          spans):
+    """The kernel's partition: the warps' split of a span's chunks by the
+    16-row m-tiles of ``rows`` query rows, and a range's spans, aligned
+    to the table, in span order."""
     assert ops.kv_splits(rows) == splits
+    assert ops.kv_spans(lo, hi, span) == spans
+
+
+@pytest.mark.parametrize("shape,span", [
+    ((16, 160), 32),     # the serving cells' 16-position pages: 512 positions
+    ((16, 8), 8),        # a short table: one span, no merge
+    ((16, 32), 32),      # a table of exactly one span
+    ((128, 36), 4),      # the dense cache's 128-position tiles
+    ((8, 160), 64),      # pages of 8 positions
+    ((24, 7), 7),        # a page no power of two, a table under one span
+])
+def test_kv_span_is_a_function_of_the_shapes(shape, span):
+    """The span in kv tiles: ``SPAN_POSITIONS`` positions, or the whole
+    table where that is shorter."""
+    assert ops.kv_span(*shape) == span
+
+
+def test_launch_args_carry_the_span():
+    q = (16, 1, 32, 80)
+    paged = ops.paged_launch_args(q, (2561, 16, 32, 80), (16, 160), None)
+    assert paged[8] == ops.kv_span(16, 160) == 32
+    dense = ops.dense_launch_args(q, (16, 2560, 32, 80), None)
+    assert dense[8] == ops.kv_span(ops.K_BLOCK, 20) == 4
+
+
+def test_span_buffers_keep_every_arrival_buffer(monkeypatch):
+    """A launch of one span gets no scratch and no counters; one of more
+    gets a counter per (row, kv head, q tile) range, and a buffer it
+    outgrows stays held (a graph captured on it replays into it)."""
+    monkeypatch.setattr(ops, "_ARRIVALS", {})
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: False)
+    q = torch.zeros(16, 1, 32, 80)
+    assert ops._span_buffers(q, 32, 32, 16, 32) == (None, None)
+    part, small = ops._span_buffers(q, 32, 160, 16, 32)
+    assert part.numel() == 16 * 32 * 5 * 82 and small.numel() == 4096
+    assert ops._span_buffers(q, 32, 160, 16, 32)[1] is small
+    big = ops._span_buffers(torch.zeros(130, 1, 32, 80), 32, 160, 16, 32)[1]
+    assert big.numel() == 8192 and not bool(big.any())
+    assert ops._ARRIVALS[q.device][0] is small
+    assert ops._ARRIVALS[q.device][-1] is big
+
+
+@pytest.mark.parametrize("span", [1, 3, 5])
+def test_slack_report_counts_spans(span):
+    """``kv_spans_executed`` is the number of blocks that run: one per
+    live span of each (row, q tile) range, one for an empty range."""
+    lens, n, kb, s = [0, 3, 40, 200], 2, 16, 256
+    rep = ops.slack_report(n, lens, s, head_dim=16, k_block=kb, span=span)
+    want = 0
+    for ln in lens:
+        want += len(ops.kv_spans(0, min(s // kb, -(-(ln + n) // kb)), span))
+    assert rep["kv_spans_executed"] == want
+    assert rep["rows_split"] == sum(-(-(ln + n) // kb) > span
+                                    for ln in lens) / len(lens)
 
 
 # ---------------------------------------------------------------------------
@@ -243,5 +317,66 @@ def test_dense_split_emulation_matches_reference(heads, n, window, s):
     got = ops.decode_attention_split(
         torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
         torch.as_tensor(lens), window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's spans: a range cut into blocks of ``span`` kv tiles, merged
+# in span order (emulated in float32)
+# ---------------------------------------------------------------------------
+
+SPAN_CASES = {
+    # heads, n, lens, window
+    "long_row": ((4, 4), 1, [0, 3, 17, 250], None),      # one row far longer
+    "window": ((8, 2), 5, [0, 40, 130, 200], 24),
+    "n16": ((8, 2), 16, [0, 1, 100, 240], None),          # 64 resident rows
+    "n17": ((8, 2), 17, [0, 15, 16, 239], 48),            # 64 + 4 rows
+    "gn_over_64": ((16, 2), 9, [0, 30, 120, 247], None),  # g·n = 72 > 64
+}
+
+
+@pytest.mark.parametrize("span", [1, 3, 16])
+@pytest.mark.parametrize("case", list(SPAN_CASES))
+def test_paged_split_emulation_spans(case, span):
+    """Spans of one page (every tile its own block), of three (spans that
+    straddle a row's end and, with a window, its start) and of sixteen
+    (the whole 256-position table: no merge), against the reference's
+    paged Pallas kernel in interpret mode: rows of length 0, short rows
+    beside one far longer, n 16 and 17, g·n over 64 rows (two row
+    chunks).  float32 (2e-5, as above)."""
+    (h, kv), n, lens, window = SPAN_CASES[case]
+    rng = np.random.default_rng(span + n)
+    b, dh, bs, s = 4, 16, 16, 256
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array(lens, np.int32)
+    k_pool, v_pool, tables = _pool(rng, k, v, lens, n, bs, "fragmented")
+    want = ref_ops.decode_attention_paged(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(lens), jnp.asarray(tables), window=window)
+    got = ops.decode_attention_split(
+        torch.as_tensor(q), torch.as_tensor(k_pool), torch.as_tensor(v_pool),
+        torch.as_tensor(lens), torch.as_tensor(tables), window=window,
+        span=span)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("span", [1, 2])
+@pytest.mark.parametrize("n,window", [(1, None), (17, 24), (65, None)])
+def test_dense_split_emulation_spans(n, window, span):
+    """The dense mode's spans of one 128-position tile and of two (the
+    whole 256-position cache), GQA, against the reference's dense Pallas
+    kernel in interpret mode (2e-5, as above)."""
+    rng = np.random.default_rng(50 + n + span)
+    b, h, kv, dh, s = 4, 8, 2, 16, 256
+    q, k, v = _qkv(rng, b, n, h, kv, dh, s)
+    lens = np.array([0, 5, 129, s - n], np.int32)
+    want = ref_ops.decode_attention_ragged(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens),
+        window=window)
+    got = ops.decode_attention_split(
+        torch.as_tensor(q), torch.as_tensor(k), torch.as_tensor(v),
+        torch.as_tensor(lens), window=window, span=span)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=ATOL, rtol=RTOL)
